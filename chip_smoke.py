@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/CUDA port (`gan_discovery_pso_tpu_torch`).
+
+Run from the root of a checkout on a host with one NVIDIA card:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from `gan_discovery_pso_tpu_torch/csrc/`,
+holds each kernel against its plain PyTorch version on the card (bit for
+bit), times both, drives the main path — the batched PSO discovery sweep,
+8 classes x 32 particles x 50 iterations, z=100, DCGAN G(64), ResNet-50 with
+8 classes, seeded random weights — in fp32 parity mode and in bf16, checks
+that every kernel of the path launched once per iteration, checks the
+results (finite, in [eps, 1+eps], reproducible, the bf16 gate, agreement
+with the CPU path on a small input), and prints:
+
+    card: <nvidia-smi name, power limit>
+    ... progress lines ...
+    {"kernels": [...]}          one line: per kernel, times, bound, launches
+    {"ok": true, "device": {...}}   the last line
+
+Every failure raises and exits non-zero; no phase catches its own failure.
+It exits non-zero with no result where CUDA is missing or the package is
+not beside the script. It imports nothing of JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+N_CLASSES, N_PARTICLES, N_ITERATIONS, DIM = 8, 32, 50, 100
+EPS = 0.1
+SEED = 0
+GATE = 1e-3  # |g_best fp32 - bf16|, bench.py's gate
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32, outside the tensor cores
+TIMED_LAUNCHES = 200
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
+    """Mean time per call over `launches` back-to-back calls, between two
+    CUDA events: the larger of the host's time to issue a call and the
+    device's time to run it."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def in_turns(kernel, plain) -> tuple[float, float]:
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bits_equal(a, b) -> float:
+    """Raise unless a and b hold the same bits (any NaN matches any NaN);
+    return max |a - b| over the non-NaN entries (0.0)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+    if a.dtype == torch.bool:
+        if not torch.equal(a, b):
+            raise AssertionError("bool outputs differ")
+        return 0.0
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(nan_a, nan_b):
+        raise AssertionError("NaN positions differ")
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    same = (a.view(ints) == b.view(ints)) | nan_a
+    if not bool(same.all()):
+        diff = (a.float() - b.float()).abs().nan_to_num(0.0).max()
+        raise AssertionError(f"{int((~same).sum())} entries differ, max |diff| {float(diff)}")
+    return 0.0
+
+
+def build_models(device):
+    import torch
+
+    from gan_discovery_pso_tpu_torch.models import (
+        Generator, GeneratorDef, ResNet, ResNetDef, dcgan_init_, glorot_normal_init_)
+
+    rng = torch.Generator(device=device).manual_seed(SEED)
+    gen = dcgan_init_(Generator(GeneratorDef(DIM, 1, 64), device=device), rng).eval()
+    cnn = glorot_normal_init_(
+        ResNet(ResNetDef("ResNet50", 1, N_CLASSES), device=device), rng).eval()
+    return gen, cnn
+
+
+def real_fitness(models, positions, classes):
+    """Full-width G + ResNet-50 fitness [B, N] at positions [B, N, d]."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.pso import apply_discovery_fitness
+
+    b, n, d = positions.shape
+    with fp32_parity(), torch.no_grad():
+        vals = apply_discovery_fitness(positions.reshape(b * n, d), *models,
+                                       classes.repeat_interleave(n), eps=EPS)
+    return vals.reshape(b, n)
+
+
+def swarm_update_bound_ms(b, n, d) -> tuple[float, str]:
+    nbytes = 4 * (3 * b * n * d + 4 * b * n + b * d + 3 * b)  # inputs, read once
+    nbytes += 4 * (3 * b * n * d + b * n + b * d + 2 * b) + b  # outputs, written once
+    ops = 10 * b * n * d + 2 * b * n
+    return _bound(nbytes, ops)
+
+
+def rescale_bound_ms(n, f, out_bytes) -> tuple[float, str]:
+    return _bound(4 * n * f + out_bytes * n * f, 6 * n * f)
+
+
+def _bound(nbytes, ops) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_swarm_update(models, device) -> dict:
+    """B1 against its plain version at [8,32,100], [8,256,100] and [3,13,7]
+    over chained iterations: real fitness values, forced exact ties, and an
+    all-inf start. Returns the kernel's record (without launches)."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops.kernels import swarm_update, swarm_update_plain
+    from gan_discovery_pso_tpu_torch.pso import state_from_positions
+
+    rng = torch.Generator(device=device).manual_seed(SEED + 1)
+    err = 0.0
+    timed_args = None
+    for b, n, d in ((N_CLASSES, N_PARTICLES, DIM), (N_CLASSES, 256, DIM), (3, 13, 7)):
+        pos = torch.randn((b, n, d), generator=rng, device=device)
+        vel = (torch.randn((b, n, d), generator=rng, device=device) - 0.5) / 10.0
+        s = state_from_positions(pos, vel, 0.73)
+        classes = torch.arange(b, device=device)
+        for it in range(5):
+            if it == 0:
+                fit = torch.full((b, n), torch.inf, device=device)  # nothing improves
+            elif d == DIM:
+                fit = real_fitness(models, s.positions, classes)
+            else:
+                fit = (s.positions * s.positions).sum(dim=2)
+            if it >= 2:  # exact ties at the minimum: the first index must win
+                lo = fit.amin(dim=1, keepdim=True)
+                fit[:, 1::3] = lo
+            r1 = torch.rand((b, n), generator=rng, device=device)
+            r2 = torch.rand((b, n), generator=rng, device=device)
+            w = torch.full((b,), 0.73 * 0.99 ** it, device=device)
+            args = (s.positions, s.velocities, s.p_best_pos, s.p_best_val, fit, r1, r2,
+                    s.g_best_pos, s.g_best_val, s.g_prev_val, w, 1.496, 1.496)
+            got, want = swarm_update(*args), swarm_update_plain(*args)
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                err = max(err, bits_equal(x, y))
+            s = s._replace(positions=got.positions, velocities=got.velocities,
+                           p_best_pos=got.p_best_pos, p_best_val=got.p_best_val,
+                           g_best_pos=got.g_best_pos, g_best_val=got.g_best_val,
+                           g_prev_val=got.g_prev_val)
+            if (b, n, d) == (N_CLASSES, N_PARTICLES, DIM):
+                timed_args = args
+        log(f"swarm_update [{b},{n},{d}]: bit-equal to plain over 5 iterations")
+    ms, plain_ms = in_turns(lambda: swarm_update(*timed_args),
+                            lambda: swarm_update_plain(*timed_args))
+    bound_ms, bound_by = swarm_update_bound_ms(N_CLASSES, N_PARTICLES, DIM)
+    return {"name": "swarm_update", "route": "cuda",
+            "source": "gan_discovery_pso_tpu_torch/csrc/swarm_update.cu",
+            "replaces": "gan_discovery_pso_tpu/ops/pallas/swarm_update.py:32",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "parity": "bitwise", "shape": [N_CLASSES, N_PARTICLES, DIM]}
+
+
+def check_rescale(models, device) -> dict:
+    """B2 against its plain version at [256,784] (real G images) and [9,300],
+    each with a constant row: fp32 bit-equal, bf16 equal to plain-then-cast."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops.kernels import rescale01_rows, rescale01_rows_plain
+
+    rng = torch.Generator(device=device).manual_seed(SEED + 2)
+    z = torch.randn((N_CLASSES * N_PARTICLES, DIM, 1, 1), generator=rng, device=device)
+    with torch.no_grad():
+        imgs = models[0](z).reshape(N_CLASSES * N_PARTICLES, -1)
+    small = torch.randn((9, 300), generator=rng, device=device)
+    err = 0.0
+    for x in (imgs, small):
+        x[3] = 0.25  # constant row: 0/0 → NaN
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got, want = rescale01_rows(x, out_dtype), rescale01_rows_plain(x, out_dtype)
+            torch.cuda.synchronize()
+            err = max(err, bits_equal(got, want))
+            if not bool(torch.isnan(got[3]).all()):
+                raise AssertionError("a constant row must give NaN")
+        log(f"rescale01_rows {list(x.shape)}: bit-equal to plain in fp32 and bf16")
+    x = imgs
+    ms, plain_ms = in_turns(lambda: rescale01_rows(x), lambda: rescale01_rows_plain(x))
+    n, f = x.shape
+    bound_ms, bound_by = rescale_bound_ms(n, f, 4)
+    return {"name": "rescale01_rows", "route": "cuda",
+            "source": "gan_discovery_pso_tpu_torch/csrc/rescale.cu",
+            "replaces": "gan_discovery_pso_tpu/ops/pallas/rescale.py:38",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "parity": "bitwise", "shape": [n, f]}
+
+
+def drive_main_path(models, device, dtype, kernels, hp=None, classes=None, **draws):
+    """One run of the batched runner; returns (final, history, seconds,
+    launches per kernel). The launch counts are zeroed just before. Draws
+    not given come from a generator seeded with SEED + 3."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import PsoConfig
+    from gan_discovery_pso_tpu_torch.pso import make_batched_discovery_runner
+
+    hp = hp or PsoConfig(n_iterations=N_ITERATIONS, n_particles=N_PARTICLES, dim_space=DIM)
+    classes = list(range(N_CLASSES)) if classes is None else classes
+    run = make_batched_discovery_runner(hp, eps=EPS, dtype=dtype, device=device)
+    rng = torch.Generator(device=device).manual_seed(SEED + 3)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    final, hist, _ = run(*models, classes, rng=rng, **draws)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return final, hist, seconds, {k.__name__: k.launches for k in kernels}
+
+
+def profile_main_path(models, device, kernels) -> dict:
+    """One fp32 main-path run under torch.profiler: wall time, device busy
+    time (the sum of the device intervals of kernels, copies and sets on the
+    one stream), the idle share, device µs per launch of each port kernel,
+    and the kernels taking most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, seconds, _ = drive_main_path(models, device, None, kernels)
+    per_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total, count = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    busy_us = sum(t for t, _ in per_name.values())
+    if busy_us == 0:
+        return {"device_time": "not measured (the profiler recorded no device events)"}
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
+    ours = {}
+    for name in ("rescale01_rows", "swarm_update"):
+        hits = [v for k, v in per_name.items() if f"{name}_kernel" in k]
+        ours[name] = (sum(t for t, _ in hits), sum(c for _, c in hits))
+    return {
+        "wall_ms": seconds * 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / (seconds * 1e6),
+        "port_kernels_us_per_launch": {k: t / c for k, (t, c) in ours.items() if c},
+        "top_device_kernels": [{"name": k[:90], "ms": t / 1e3, "count": c}
+                               for k, (t, c) in top],
+    }
+
+
+def check_against_cpu(models, device, kernels) -> float:
+    """The card's path (kernels) against the CPU path (plain versions) on a
+    small input with the same full-width weights and draws: 2 classes x 4
+    particles x 3 iterations. Returns max |fitness difference|."""
+    import copy
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import PsoConfig
+    from gan_discovery_pso_tpu_torch.pso import (
+        draw_uniforms, make_batched_discovery_runner, swarm_init)
+
+    hp = PsoConfig(n_iterations=3, n_particles=4, dim_space=DIM)
+    rng = torch.Generator(device=device).manual_seed(SEED + 4)
+    init = swarm_init(rng, 2, 4, DIM, hp.w_inertia, device)
+    r1, r2 = draw_uniforms(rng, 3, 2, 4, device)
+    _, on_card, _, launches = drive_main_path(models, device, None, kernels, hp, [1, 6],
+                                              init_state=init, r1=r1, r2=r2)
+    if set(launches.values()) != {3}:
+        raise AssertionError(f"small run launches {launches}")
+    cpu_models = tuple(copy.deepcopy(m).cpu() for m in models)
+    _, on_cpu, _ = make_batched_discovery_runner(hp, eps=EPS, device="cpu")(
+        *cpu_models, [1, 6], init_state=type(init)(*(t.cpu() for t in init)),
+        r1=r1.cpu(), r2=r2.cpu())
+    # fp32 conv sums run in another order in cuDNN and oneDNN
+    torch.testing.assert_close(on_card.fitness.cpu(), on_cpu.fitness, rtol=1e-4, atol=1e-5)
+    return float((on_card.fitness.cpu() - on_cpu.fitness).abs().max())
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "gan_discovery_pso_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: gan_discovery_pso_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from gan_discovery_pso_tpu_torch.core import PsoConfig
+    from gan_discovery_pso_tpu_torch.ops.kernels import KERNELS, _build
+
+    card = card_line()
+    log(f"card: {card}")
+    device = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.library()
+    log(f"kernels built in {time.perf_counter() - t0:.2f} s: {so.name}")
+
+    models = build_models(device)
+    records = [check_swarm_update(models, device), check_rescale(models, device)]
+
+    evals = N_CLASSES * N_PARTICLES * N_ITERATIONS
+    results = {}
+    for label, dtype in (("fp32", None), ("fp32", None), ("bf16", torch.bfloat16),
+                         ("bf16", torch.bfloat16)):
+        final, hist, seconds, launches = drive_main_path(models, device, dtype, KERNELS)
+        for name, count in launches.items():
+            if count != N_ITERATIONS:
+                raise AssertionError(f"{label}: {name} launched {count} times, "
+                                     f"not {N_ITERATIONS}")
+        g = final.g_best_val
+        if not (bool(torch.isfinite(g).all()) and bool((g >= EPS).all())
+                and bool((g <= 1 + EPS).all())):
+            raise AssertionError(f"{label}: g_best out of [eps, 1+eps]: {g.tolist()}")
+        if tuple(hist.fitness.shape) != (N_CLASSES, N_ITERATIONS, N_PARTICLES):
+            raise AssertionError(f"{label}: fitness history {tuple(hist.fitness.shape)}")
+        results.setdefault(label, []).append((g.clone(), seconds, launches))
+        log(f"main path {label}: {seconds * 1e3:.1f} ms, {evals / seconds:.0f} evals/s "
+            f"({card}); launches {launches}; g_best {g.tolist()}")
+    (g32a, _, launches32), (g32b, s32, _) = results["fp32"]
+    g16, s16, _ = results["bf16"][1]
+    if not torch.equal(g32a, g32b):
+        raise AssertionError(f"two fp32 runs differ: {g32a.tolist()} vs {g32b.tolist()}")
+    gate = float((g32b - g16).abs().max())
+    if gate > GATE:
+        raise AssertionError(f"bf16 gate: max |g32 - g16| = {gate} > {GATE}")
+    log(f"fp32 runs identical; bf16 gate max |g32 - g16| = {gate:.3e} <= {GATE}")
+    log(f"evals/s warm: fp32 {evals / s32:.0f}, bf16 {evals / s16:.0f} ({card})")
+    prof = profile_main_path(models, device, KERNELS)
+    log("profile fp32 main path: " + json.dumps(prof))
+    diff = check_against_cpu(models, device, KERNELS)
+    log(f"small input: card path (kernels) agrees with the CPU path (plain) to {diff:.3e}")
+
+    for rec in records:
+        rec["launches"] = launches32[rec["name"]]
+        rec["device_us_per_launch"] = prof.get("port_kernels_us_per_launch", {}).get(
+            rec["name"], "not measured")
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

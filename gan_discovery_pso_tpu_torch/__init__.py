@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of `gan_discovery_pso_tpu` for NVIDIA Hopper (H100).
+
+The JAX package beside this one is the reference; this package imports
+neither it nor JAX. Module paths mirror the JAX package's:
+
+- `core/`: config (`PsoConfig`), the device policy (CUDA unless the caller
+  names another device);
+- `ops/`: convs, eval BN, pools, the plain rescale, the precision modes, and
+  `ops/kernels/` — the hand-written CUDA kernels (`csrc/*.cu`) that replace
+  the JAX package's two Pallas TPU kernels, each beside its plain version;
+- `models/`: the DCGAN generator and the ResNet assessors as `nn.Module`s;
+- `pso/`: fitness, swarm, and the batched discovery runner (the main path);
+- `compat/weights.py`: JAX parameter trees and reference checkpoints into
+  the port's state dicts.
+"""
+
+from gan_discovery_pso_tpu_torch.core.config import PsoConfig
+from gan_discovery_pso_tpu_torch.pso.runner import (
+    make_batched_discovery_runner,
+    make_discovery_runner,
+)
+
+__all__ = ["PsoConfig", "make_batched_discovery_runner", "make_discovery_runner"]

@@ -1,0 +1,13 @@
+from gan_discovery_pso_tpu_torch.compat.weights import (
+    generator_state_dict,
+    load_reference_checkpoint,
+    resnet_state_dict,
+    to_tensors,
+)
+
+__all__ = [
+    "generator_state_dict",
+    "load_reference_checkpoint",
+    "resnet_state_dict",
+    "to_tensors",
+]

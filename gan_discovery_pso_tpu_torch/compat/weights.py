@@ -1,0 +1,102 @@
+"""Carry weights into the port's modules.
+
+The port's own counterpart of `gan_discovery_pso_tpu/compat/torch_export.py:
+32-128` (it imports nothing of the JAX package). The JAX package's parameter
+trees already hold torch layouts (conv OIHW, transposed conv IOHW, linear
+(out, in)), so values copy verbatim and only the names change to the
+reference's state-dict names, which the port's modules carry:
+
+    tree = jax params/state (nested dicts; leaves are arrays of any kind
+           np.asarray accepts, BN stats as an object with .mean/.var, a dict
+           or a (mean, var) pair)
+    generator_state_dict(params, state) / resnet_state_dict(params, state)
+        → {name: np.ndarray}
+    to_tensors(...) → {name: torch.Tensor}, ready for
+        module.load_state_dict(..., strict=True)
+
+`load_reference_checkpoint` reads the reference's `.tar`
+(`{'epoch', 'model_state_dict', 'loss'}`) and bare `.pt` state dicts.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def _bn_stats(st):
+    """(running_mean, running_var) from a stats object or its plain forms."""
+    if hasattr(st, "mean"):
+        return _np(st.mean), _np(st.var)
+    if isinstance(st, dict):
+        return _np(st["mean"]), _np(st["var"])
+    m, v = st
+    return _np(m), _np(v)
+
+
+def _put_conv(sd: dict, prefix: str, p: dict):
+    sd[f"{prefix}.weight"] = _np(p["w"])
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _np(p["b"])
+
+
+def _put_bn(sd: dict, prefix: str, p: dict, st):
+    sd[f"{prefix}.weight"] = _np(p["scale"])
+    sd[f"{prefix}.bias"] = _np(p["bias"])
+    sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"] = _bn_stats(st)
+    # strict load_state_dict wants the counter torch BN modules carry
+    sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def generator_state_dict(params: dict, state: dict) -> dict:
+    """DCGAN generator tree → `Generator` state dict (`gen.*` names)."""
+    sd: dict = {}
+    _put_conv(sd, "gen.0.0", params["convt1"])
+    _put_bn(sd, "gen.0.1", params["bn1"], state["bn1"])
+    _put_conv(sd, "gen.1.0", params["convt2"])
+    _put_bn(sd, "gen.1.1", params["bn2"], state["bn2"])
+    _put_conv(sd, "gen.2", params["convt3"])
+    return sd
+
+
+def resnet_state_dict(params: dict, state: dict) -> dict:
+    """ResNet-50/101/152 tree → `ResNet` state dict."""
+    sd: dict = {}
+    _put_conv(sd, "conv1", params["conv1"])
+    _put_bn(sd, "bn1", params["bn1"], state["bn1"])
+    li = 1
+    while f"layer{li}" in params:
+        for bi, (bp, bs) in enumerate(zip(params[f"layer{li}"], state[f"layer{li}"])):
+            pfx = f"layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                _put_conv(sd, f"{pfx}.conv{ci}", bp[f"conv{ci}"])
+                _put_bn(sd, f"{pfx}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+            if "ds_conv" in bp:
+                _put_conv(sd, f"{pfx}.identity_downsample.0", bp["ds_conv"])
+                _put_bn(sd, f"{pfx}.identity_downsample.1", bp["ds_bn"], bs["ds_bn"])
+        li += 1
+    sd["fc.weight"] = _np(params["fc"]["w"])
+    sd["fc.bias"] = _np(params["fc"]["b"])
+    return sd
+
+
+def to_tensors(sd: dict, device=None) -> dict:
+    """{name: array} → {name: tensor}: fp32, the BN counters int64."""
+    return {k: torch.as_tensor(np.ascontiguousarray(
+                v if v.dtype == np.int64 else v.astype(np.float32)), device=device)
+            for k, v in sd.items()}
+
+
+def load_reference_checkpoint(path: str | Path, map_location="cpu") -> dict:
+    """State dict from a reference `.tar` ({'model_state_dict': ...}) or a
+    bare `.pt` state dict."""
+    obj = torch.load(path, map_location=map_location, weights_only=True)
+    if isinstance(obj, dict) and "model_state_dict" in obj:
+        return obj["model_state_dict"]
+    return obj

@@ -1,0 +1,9 @@
+from gan_discovery_pso_tpu_torch.core.config import (
+    Config,
+    PsoConfig,
+    cfg_default,
+    load_config,
+)
+from gan_discovery_pso_tpu_torch.core.device import resolve_device
+
+__all__ = ["Config", "PsoConfig", "cfg_default", "load_config", "resolve_device"]

@@ -1,0 +1,62 @@
+"""DCGAN generator, eval-mode forward (counterpart of
+`gan_discovery_pso_tpu/models/dcgan.py:56-89`).
+
+Reference src/utils/util_dcgan.py:128-149:
+
+    z [N, z_dim, 1, 1]
+      → ConvT(z_dim, 2f, k7, s1, p0) + BN + ReLU   → [N, 2f, 7, 7]
+      → ConvT(2f,   f,  k4, s2, p1) + BN + ReLU    → [N, f, 14, 14]
+      → ConvT(f,    C,  k4, s2, p1) + Tanh         → [N, C, 28, 28]
+
+Submodules carry the reference's state-dict names (`gen.0.0`, `gen.0.1`,
+`gen.1.0`, `gen.1.1`, `gen.2`), so a reference checkpoint and
+`compat/weights.py` output load with `strict=True`. The forward always uses
+the BN running statistics (the PSO fitness path); training waits for the
+training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from gan_discovery_pso_tpu_torch.ops import batch_norm_eval, conv_transpose2d
+
+
+class GeneratorDef(NamedTuple):
+    z_dim: int
+    channels_img: int = 1
+    features_g: int = 64
+
+
+def _block(cin, cout, k, s, p, **kw):
+    return nn.Sequential(nn.ConvTranspose2d(cin, cout, k, s, p, **kw),
+                         nn.BatchNorm2d(cout, **kw), nn.ReLU())
+
+
+class Generator(nn.Module):
+    def __init__(self, d: GeneratorDef, *, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        f = d.features_g
+        self.gen = nn.Sequential(
+            _block(d.z_dim, f * 2, 7, 1, 0, **kw),
+            _block(f * 2, f, 4, 2, 1, **kw),
+            nn.ConvTranspose2d(f, d.channels_img, 4, 2, 1, **kw),
+            nn.Tanh(),
+        )
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """z [N, z_dim, 1, 1] → images [N, C, 28, 28] in [-1, 1]."""
+        h = z
+        for block in self.gen[:2]:
+            conv, bn = block[0], block[1]
+            h = conv_transpose2d(h, conv.weight, conv.bias, conv.stride, conv.padding)
+            h = batch_norm_eval(h, bn.weight, bn.bias, bn.running_mean,
+                                bn.running_var, bn.eps)
+            h = torch.relu(h)
+        head = self.gen[2]
+        return torch.tanh(conv_transpose2d(h, head.weight, head.bias,
+                                           head.stride, head.padding))

@@ -1,0 +1,77 @@
+"""Linear layer and the seeded weight initialisations of the port's models.
+
+Counterpart of `gan_discovery_pso_tpu/models/layers.py`. Layouts are torch's:
+conv weight (O, I, kH, kW), transposed-conv weight (I, O, kH, kW), linear
+weight (out, in). Every draw comes from the `torch.Generator` the caller
+passes, so a seed fixes the weights (the JAX package draws from keys, which
+torch cannot reproduce: parity tests carry weights across with
+`compat/weights.py` instead).
+
+Schemes (reference src/utils/util_dcgan.py:45-48, src/pso/util_cnn.py:65-79):
+- DCGAN: N(0, 0.02) on conv, transposed-conv and BN weights; biases keep
+  torch's default U(±1/sqrt(fan_in)); BN biases 0;
+- `glorot_normal` (the ResNet assessors): xavier-normal conv and linear
+  weights; linear biases keep torch's default; BN weight 1, bias 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_CONVS = (nn.Conv2d, nn.ConvTranspose2d)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ weight.T + bias, weight (out, in), in x's dtype: fp32 x with bf16
+    weights runs in fp32, as JAX promotes `jnp.matmul` of the two."""
+    t = x.dtype
+    return F.linear(x, weight.to(t), None if bias is None else bias.to(t))
+
+
+def _fan_in(weight: torch.Tensor) -> int:
+    # torch's rule: dim 1 times the receptive field (for a transposed conv
+    # (I, O, kH, kW) that is O·kH·kW)
+    return weight.shape[1] * math.prod(weight.shape[2:])
+
+
+def _default_bias_(bias: torch.Tensor, weight: torch.Tensor, generator: torch.Generator):
+    bound = 1.0 / math.sqrt(_fan_in(weight))
+    nn.init.uniform_(bias, -bound, bound, generator=generator)
+
+
+def _reset_bn_(bn: nn.BatchNorm2d):
+    nn.init.zeros_(bn.bias)
+    bn.reset_running_stats()
+
+
+@torch.no_grad()
+def dcgan_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """N(0, 0.02) on conv/BN weights, torch-default conv biases, in place."""
+    for m in model.modules():
+        if isinstance(m, _CONVS):
+            nn.init.normal_(m.weight, 0.0, 0.02, generator=generator)
+            if m.bias is not None:
+                _default_bias_(m.bias, m.weight, generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            nn.init.normal_(m.weight, 0.0, 0.02, generator=generator)
+            _reset_bn_(m)
+    return model
+
+
+@torch.no_grad()
+def glorot_normal_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Xavier-normal conv/linear weights, torch-default biases, identity BN,
+    in place."""
+    for m in model.modules():
+        if isinstance(m, (*_CONVS, nn.Linear)):
+            nn.init.xavier_normal_(m.weight, generator=generator)
+            if m.bias is not None:
+                _default_bias_(m.bias, m.weight, generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            nn.init.ones_(m.weight)
+            _reset_bn_(m)
+    return model

@@ -1,0 +1,16 @@
+from gan_discovery_pso_tpu_torch.ops.conv import conv2d, conv_transpose2d
+from gan_discovery_pso_tpu_torch.ops.norm import batch_norm_eval
+from gan_discovery_pso_tpu_torch.ops.pool import adaptive_max_pool2d, max_pool2d
+from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
+from gan_discovery_pso_tpu_torch.ops.rescale import rescale01_per_sample
+
+__all__ = [
+    "adaptive_max_pool2d",
+    "batch_norm_eval",
+    "cast_model",
+    "conv2d",
+    "conv_transpose2d",
+    "fp32_parity",
+    "max_pool2d",
+    "rescale01_per_sample",
+]

@@ -1,0 +1,120 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Every `*.cu` file in `gan_discovery_pso_tpu_torch/csrc/` exports plain C
+entry points (no PyTorch headers), so a build takes seconds. At first use the
+sources are compiled for `sm_90a`, one nvcc per source started together, and
+linked into one shared library under `gan_discovery_pso_tpu_torch/_build/`,
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads the library already built. A failed build raises with
+nvcc's output; nothing falls back.
+
+Nothing here runs at import: the package imports on hosts with no nvcc and
+no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("rescale.cu", "swarm_update.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# name -> argtypes, for every entry point of the library; each returns the
+# cudaError_t of its launch as an int
+_SIGNATURES = {
+    "gdpt_rescale01_rows": (_P, _P, _I, _I, _I, _P),
+    "gdpt_swarm_update": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
+        _F, _F,  # w_cognitive, w_social
+        _P, _P, _P, _P, _P, _P, _P, _P,  # outputs
+        _I, _I, _I, _P),  # n_swarms, n_particles, dim, stream
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return str(Path(cuda_home) / "bin" / "nvcc")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libgdpt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs):
+    errors = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode:
+            errors.append(f"$ {' '.join(cmd)}\n{out}{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
+def build() -> Path:
+    """Compile the sources (in parallel) and link them into one library;
+    returns its path. A library already built from these sources is kept."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}_{threading.get_ident()}"
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{Path(name).stem}_{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    try:
+        _run(procs)
+        tmp = so.with_name(f"{so.stem}_{tag}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

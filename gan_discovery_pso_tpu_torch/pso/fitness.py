@@ -1,0 +1,68 @@
+"""Discovery fitness: particle positions → objective, batched over every
+particle of every swarm (counterpart of
+`gan_discovery_pso_tpu/pso/fitness.py:35-96`).
+
+Reference src/pso/util_discovery.py:33-82:
+- positions [M, d] reshape to latents [M, d, 1, 1];
+- generator forward (eval), per-sample min-max rescale to [0, 1];
+- assessor softmax posterior: multi-class nets take the class column (here
+  per row, so one batch holds every class's swarm), binary nets column 1;
+- 'optimize_in_training'  → min(p + thr, 1) + eps,
+  'optimize_out_training' → 1 − min(p + thr, 1) + eps.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from gan_discovery_pso_tpu_torch.ops.kernels import rescale01_per_sample
+
+OPTIMIZE_IN = "optimize_in_training"
+OPTIMIZE_OUT = "optimize_out_training"
+
+
+def assessor_posterior(logits: torch.Tensor, class_idx) -> torch.Tensor:
+    """Softmax over classes, then the target column: `class_idx` is an int
+    or a [M] tensor with one class per row; binary nets take column 1."""
+    probs = torch.softmax(logits.float(), dim=1)
+    if logits.shape[1] <= 2:
+        return probs[:, 1]
+    idx = torch.as_tensor(class_idx, dtype=torch.long, device=probs.device)
+    idx = idx.expand(probs.shape[0]) if idx.dim() == 0 else idx
+    return probs.gather(1, idx[:, None]).squeeze(1)
+
+
+def fitness_from_posterior(p: torch.Tensor, control: str, threshold: float = 0.0,
+                           eps: float = 0.1) -> torch.Tensor:
+    clipped = torch.clamp(p + threshold, max=1.0)
+    if control == OPTIMIZE_IN:
+        return clipped + eps
+    if control == OPTIMIZE_OUT:
+        return (1.0 - clipped) + eps
+    raise ValueError(control)
+
+
+def apply_discovery_fitness(
+    positions: torch.Tensor,
+    gen_model: nn.Module,
+    assessor: nn.Module,
+    class_idx,
+    control: str = OPTIMIZE_OUT,
+    threshold: float = 0.0,
+    eps: float = 0.1,
+    dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """positions [M, d] → fitness [M] (fp32). `dtype` (bf16 mode) casts the
+    latents; the caller casts the models (`ops.precision.cast_model`). The
+    images come out fp32 either way (`ops/conv.py`); in bf16 mode the rescale
+    kernel casts them to bf16, the cast the assessor's first conv would make
+    (the JAX package casts there)."""
+    z = positions.reshape(positions.shape[0], positions.shape[1], 1, 1)
+    if dtype is not None:
+        z = z.to(dtype)
+    img = gen_model(z)
+    img01 = rescale01_per_sample(img.float(), out_dtype=dtype or img.dtype)
+    logits = assessor(img01)
+    return fitness_from_posterior(assessor_posterior(logits, class_idx),
+                                  control, threshold, eps)

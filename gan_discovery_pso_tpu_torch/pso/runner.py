@@ -1,0 +1,127 @@
+"""Discovery runners: every class's swarm in one batch (counterpart of
+`gan_discovery_pso_tpu/pso/runner.py:71-174`).
+
+The JAX package vmaps `optimize` over a class axis (and an optional `stack`
+axis of independent sweeps) inside one jitted program. Here both axes fold
+into the written-out swarm axis B = stack·C: each iteration runs ONE
+generator forward and ONE assessor forward over all B·N particles (or one per
+particle chunk with `fitness_chunk`), one rescale launch and one swarm-update
+launch.
+
+Models are arguments of `run`, so one runner serves every set of weights.
+`dtype=torch.bfloat16` runs the forwards on bf16 copies of the models (the
+swarm math stays fp32); the default runs them in fp32 under
+`ops.precision.fp32_parity`, the JAX package's `Precision.HIGHEST`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch import nn
+
+from gan_discovery_pso_tpu_torch.core.config import PsoConfig
+from gan_discovery_pso_tpu_torch.core.device import resolve_device
+from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
+from gan_discovery_pso_tpu_torch.pso.fitness import OPTIMIZE_OUT, apply_discovery_fitness
+from gan_discovery_pso_tpu_torch.pso.swarm import (
+    SwarmState,
+    draw_uniforms,
+    optimize,
+    swarm_init,
+)
+
+
+def _on_device(model: nn.Module, device: torch.device, name: str):
+    for p in model.parameters():
+        if p.device.type != device.type or (
+                device.index is not None and p.device.index != device.index):
+            raise ValueError(f"{name} lives on {p.device}, the runner on {device}")
+
+
+def make_batched_discovery_runner(
+    hp: PsoConfig,
+    control: str = OPTIMIZE_OUT,
+    threshold: float = 0.0,
+    eps: float = 0.1,
+    dtype: torch.dtype | None = None,
+    fitness_chunk: int | None = None,
+    stack: int | None = None,
+    device=None,
+):
+    """The batched multi-class sweep:
+
+        run(gen_model, assessor, class_idxs [C], *, rng=None,
+            init_state=None, r1=None, r2=None) → (final, history, init)
+
+    with a leading swarm axis B = stack·C (swarm s·C + c is class c of stack
+    member s). The draws are `init_state` (B swarms) and r1, r2
+    [iters, B, N]; whatever is not given is drawn from `rng`, a
+    `torch.Generator` on the runner's device.
+
+    fitness_chunk: evaluate the fitness in sequential chunks of this many
+    particles per swarm (must divide n_particles); the values are those of
+    the unchunked run. device: the card (default); a host without CUDA
+    raises unless a device such as "cpu" is named."""
+    device = resolve_device(device)
+    if fitness_chunk is not None and (fitness_chunk <= 0 or hp.n_particles % fitness_chunk):
+        raise ValueError(
+            f"fitness_chunk={fitness_chunk} must divide n_particles={hp.n_particles}")
+    chunk = fitness_chunk if fitness_chunk and fitness_chunk < hp.n_particles else None
+
+    def run(gen_model: nn.Module, assessor: nn.Module, class_idxs, *,
+            rng: torch.Generator | None = None, init_state: SwarmState | None = None,
+            r1: torch.Tensor | None = None, r2: torch.Tensor | None = None):
+        _on_device(gen_model, device, "gen_model")
+        _on_device(assessor, device, "assessor")
+        classes = torch.as_tensor(class_idxs, dtype=torch.long, device=device).reshape(-1)
+        if stack:
+            classes = classes.repeat(stack)
+        b = classes.numel()
+        if (init_state is None or r1 is None or r2 is None) and rng is None:
+            raise ValueError("pass rng, or init_state, r1 and r2")
+        if init_state is None:
+            init_state = swarm_init(rng, b, hp.n_particles, hp.dim_space,
+                                    hp.w_inertia, device)
+        if r1 is None or r2 is None:
+            r1, r2 = draw_uniforms(rng, hp.n_iterations, b, hp.n_particles, device)
+        gen = cast_model(gen_model, dtype)
+        cnn = cast_model(assessor, dtype)
+        k = chunk or hp.n_particles
+        row_classes = classes.repeat_interleave(k)  # [B·k], swarm-major
+
+        def fitness_rows(positions):  # [B, k, d] → [B, k]
+            vals = apply_discovery_fitness(
+                positions.reshape(b * k, -1), gen, cnn, row_classes,
+                control=control, threshold=threshold, eps=eps, dtype=dtype)
+            return vals.reshape(b, k)
+
+        def fitness(positions):  # [B, N, d] → [B, N]
+            if chunk is None:
+                return fitness_rows(positions)
+            return torch.cat([fitness_rows(p.contiguous())
+                              for p in positions.split(chunk, dim=1)], dim=1)
+
+        precision = fp32_parity() if dtype is None else contextlib.nullcontext()
+        with precision, torch.inference_mode():
+            return optimize(fitness, hp, init_state, r1.to(device), r2.to(device))
+
+    return run
+
+
+def make_discovery_runner(
+    hp: PsoConfig,
+    control: str = OPTIMIZE_OUT,
+    threshold: float = 0.0,
+    eps: float = 0.1,
+    device=None,
+):
+    """One swarm: run(gen_model, assessor, class_idx, *, rng=None,
+    init_state=None, r1=None, r2=None) → (final, history, init) with B = 1."""
+    batched = make_batched_discovery_runner(hp, control, threshold, eps, device=device)
+
+    def run(gen_model, assessor, class_idx: int, **draws):
+        return batched(gen_model, assessor, [class_idx], **draws)
+
+    return run

@@ -1,0 +1,42 @@
+"""Guards of the PyTorch port: it imports no JAX and nothing of the JAX
+package, and its entry points do not fall back to the CPU unasked."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from gan_discovery_pso_tpu_torch.core import PsoConfig, resolve_device
+from gan_discovery_pso_tpu_torch.pso import make_batched_discovery_runner, make_discovery_runner
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import gan_discovery_pso_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(k for k in sys.modules
+                     if k in ("jax", "jaxlib", "flax", "gan_discovery_pso_tpu")
+                     or k.startswith(("jax.", "jaxlib.", "flax.", "gan_discovery_pso_tpu.")))
+        print(len(names), bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 15  # every submodule was imported
+
+
+@pytest.mark.parametrize("factory", [make_batched_discovery_runner, make_discovery_runner])
+def test_runner_without_device_raises_on_a_host_without_cuda(factory, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        factory(PsoConfig(n_iterations=1, n_particles=2, dim_space=2))
+    assert resolve_device("cpu") == torch.device("cpu")
