@@ -7,16 +7,20 @@ Run from the root of a checkout on a host with one NVIDIA card:
 
 It builds the port's CUDA kernels from `gan_discovery_pso_tpu_torch/csrc/`,
 holds each kernel against its plain PyTorch version on the card (bit for
-bit), times both, drives the main path — the batched PSO discovery sweep,
-8 classes x 32 particles x 50 iterations, z=100, DCGAN G(64), ResNet-50 with
+bit) at the main path's shapes and at the edges of their range (B = 1,
+stacked swarms, odd and unaligned sizes, N = 4096 x d = 1024, 4096 images,
+long rows), drives the main path — the batched PSO discovery sweep, 8
+classes x 32 particles x 50 iterations, z=100, DCGAN G(64), ResNet-50 with
 8 classes, seeded random weights — in fp32 parity mode and in bf16, checks
-that every kernel of the path launched once per iteration, checks the
-results (finite, in [eps, 1+eps], reproducible, the bf16 gate, agreement
-with the CPU path on a small input), and prints:
+that every kernel of the path launched once per iteration, profiles one
+fp32 and one bf16 run, checks the results (finite, in [eps, 1+eps],
+reproducible, the bf16 gate, agreement with the CPU path on a small
+input), then times each kernel at the main path's shape and at a large one
+(device µs per launch from the profiler, beside the bound), and prints:
 
     card: <nvidia-smi name, power limit>
     ... progress lines ...
-    {"kernels": [...]}          one line: per kernel, times, bound, launches
+    {"kernels": [...]}          one line: per kernel, times, bounds, launches
     {"ok": true, "device": {...}}   the last line
 
 Every failure raises and exits non-zero; no phase catches its own failure.
@@ -26,6 +30,7 @@ not beside the script. It imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -40,6 +45,27 @@ GATE = 1e-3  # |g_best fp32 - bf16|, bench.py's gate
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32, outside the tensor cores
 TIMED_LAUNCHES = 200
+PROFILED_LAUNCHES = 50
+L2_BYTES = 50 * 2**20  # H100 L2
+# B1 bit-equality shapes [B, N, d]: the main path, 256 particles, unpadded,
+# the B = 1 runner, the stacked x4 program, N and d fitting no tile or
+# float4, the Pallas kernel's range, and d past the g-best row staged in
+# shared memory (1024), with and without float4; then the shapes timed
+SWARM_SHAPES = ((N_CLASSES, N_PARTICLES, DIM), (N_CLASSES, 256, DIM), (3, 13, 7),
+                (1, N_PARTICLES, DIM), (4 * N_CLASSES, N_PARTICLES, DIM), (2, 37, 13),
+                (1, 4096, 1024), (1, 16, 2048), (2, 9, 1030))
+SWARM_TIMED = ((N_CLASSES, N_PARTICLES, DIM), (1, 4096, 1024))
+# B2 [N, F]: the main path's images, short unaligned and odd rows, many rows,
+# rows in registers at every team size (8, 4, 2, 1 warps) and register
+# depth (1 to 32 float4 a thread), long rows (one CTA each; 65536 = a
+# 256x256 CLARO slice, 4099 odd)
+RESCALE_SHAPES = ((N_CLASSES * N_PARTICLES, 784), (9, 300), (5, 301), (4096, 784),
+                  (600, 1500), (1500, 2049), (3000, 203), (2100, 4000),
+                  (4, 65536), (3, 4099))
+RESCALE_TIMED = ((N_CLASSES * N_PARTICLES, 784), (4096, 784))
+# device kernel names of each wrapper, as the profiler reports them
+KERNEL_NAMES = {"swarm_update": ("swarm_update_kernel",),
+                "rescale01_rows": ("rescale_short_kernel", "rescale_long_kernel")}
 
 
 def log(*a):
@@ -126,26 +152,97 @@ def real_fitness(models, positions, classes):
     return vals.reshape(b, n)
 
 
-def swarm_update_bound_ms(b, n, d) -> tuple[float, str]:
-    nbytes = 4 * (3 * b * n * d + 4 * b * n + b * d + 3 * b)  # inputs, read once
-    nbytes += 4 * (3 * b * n * d + b * n + b * d + 2 * b) + b  # outputs, written once
-    ops = 10 * b * n * d + 2 * b * n
-    return _bound(nbytes, ops)
+def swarm_update_work(b, n, d, n_improved) -> tuple[int, int]:
+    """(bytes, fp32 operations): each input read once, each output written
+    once; p_best_pos rows of particles that improved are not needed (the
+    kernel skips them)."""
+    nbytes = 4 * (3 * b * n * d - n_improved * d + 4 * b * n + b * d + 3 * b)  # inputs
+    nbytes += 4 * (3 * b * n * d + b * n + b * d + 2 * b) + b  # outputs
+    return nbytes, 10 * b * n * d + 2 * b * n
 
 
-def rescale_bound_ms(n, f, out_bytes) -> tuple[float, str]:
-    return _bound(4 * n * f + out_bytes * n * f, 6 * n * f)
+def rescale_work(n, f, out_bytes) -> tuple[int, int]:
+    return 4 * n * f + out_bytes * n * f, 6 * n * f
 
 
-def _bound(nbytes, ops) -> tuple[float, str]:
+def bound_ms(nbytes, ops) -> tuple[float, str]:
+    """The least time for the work on the card, and what bounds it."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_swarm_update(models, device) -> dict:
-    """B1 against its plain version at [8,32,100], [8,256,100] and [3,13,7]
-    over chained iterations: real fitness values, forced exact ties, and an
-    all-inf start. Returns the kernel's record (without launches)."""
+def device_us(fn, kernel_names, launches: int = PROFILED_LAUNCHES) -> tuple[float, int]:
+    """(device µs per launch, launches profiled) of `fn`'s kernel over
+    `launches` standalone launches, from the profiler's device events whose
+    name holds one of `kernel_names`. The profiler has been seen to drop
+    events when other kernels run between the launches; the mean is over
+    the events it kept, and fewer than half of them fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernel_names)]
+    if not launches // 2 <= len(times) <= launches:
+        raise AssertionError(f"profiler saw {len(times)} launches of {kernel_names}, "
+                             f"not {launches}")
+    return sum(times) / len(times), len(times)
+
+
+def time_shape(kernel, plain, arg_sets, kernel_names, shape, bound) -> dict:
+    """A kernel at one shape, standalone: device µs per launch (profiler),
+    per-call ms of kernel and plain version (events, in turns), and the
+    bound. Launches cycle over `arg_sets`, copies of one input at other
+    addresses, so that a large shape does not find its input in L2."""
+    cycle = itertools.cycle(arg_sets)
+    k = lambda: kernel(*next(cycle))
+    ms, plain_ms = in_turns(k, lambda: plain(*next(cycle)))
+    us, profiled = device_us(k, kernel_names)
+    b_ms, bound_by = bound
+    return {"shape": list(shape), "device_us": us, "ms": ms, "plain_ms": plain_ms,
+            "bound_us": b_ms * 1e3, "bound_by": bound_by,
+            "share_of_bound": b_ms * 1e3 / us, "input_copies": len(arg_sets),
+            "profiled_launches": profiled}
+
+
+def time_kernel(record, kernel, plain, to_time) -> None:
+    """Time a kernel at each (shape, args, work, cold) of `to_time` and put
+    the first shape's numbers into its record. A cold shape cycles through
+    copies of its input past the L2; the main path's shape does not, as the
+    main path hands the kernel data just written."""
+    timed = []
+    for shape, args, work, cold in to_time:
+        arg_sets = copies_for_l2(args, work[0]) if cold else [args]
+        timed.append(time_shape(kernel, plain, arg_sets, KERNEL_NAMES[record["name"]],
+                                shape, bound_ms(*work)))
+        log(f"{record['name']} timed: {json.dumps(timed[-1])}")
+    main = timed[0]
+    record.update(ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_us"] * 1e-3,
+                  bound_by=main["bound_by"], timed=timed)
+
+
+def copies_for_l2(args, nbytes) -> list:
+    """`args` and enough clones that cycling through them touches more than
+    twice the card's L2 between two uses of one copy."""
+    import torch
+
+    n = 1 + min(7, -(-2 * L2_BYTES // max(nbytes, 1)))
+    return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                     for _ in range(n - 1)]
+
+
+def check_swarm_update(models, device) -> tuple[dict, list]:
+    """B1 against its plain version over chained iterations at every shape
+    of SWARM_SHAPES: real fitness values where d is the generator's, forced
+    exact ties, and an all-inf start. Returns the kernel's record (without
+    times and launches) and what `time_kernel` times at SWARM_TIMED."""
     import torch
 
     from gan_discovery_pso_tpu_torch.ops.kernels import swarm_update, swarm_update_plain
@@ -153,12 +250,12 @@ def check_swarm_update(models, device) -> dict:
 
     rng = torch.Generator(device=device).manual_seed(SEED + 1)
     err = 0.0
-    timed_args = None
-    for b, n, d in ((N_CLASSES, N_PARTICLES, DIM), (N_CLASSES, 256, DIM), (3, 13, 7)):
+    timed_args = {}
+    for b, n, d in SWARM_SHAPES:
         pos = torch.randn((b, n, d), generator=rng, device=device)
         vel = (torch.randn((b, n, d), generator=rng, device=device) - 0.5) / 10.0
         s = state_from_positions(pos, vel, 0.73)
-        classes = torch.arange(b, device=device)
+        classes = torch.arange(b, device=device) % N_CLASSES
         for it in range(5):
             if it == 0:
                 fit = torch.full((b, n), torch.inf, device=device)  # nothing improves
@@ -182,23 +279,25 @@ def check_swarm_update(models, device) -> dict:
                            p_best_pos=got.p_best_pos, p_best_val=got.p_best_val,
                            g_best_pos=got.g_best_pos, g_best_val=got.g_best_val,
                            g_prev_val=got.g_prev_val)
-            if (b, n, d) == (N_CLASSES, N_PARTICLES, DIM):
-                timed_args = args
+            timed_args[(b, n, d)] = args
         log(f"swarm_update [{b},{n},{d}]: bit-equal to plain over 5 iterations")
-    ms, plain_ms = in_turns(lambda: swarm_update(*timed_args),
-                            lambda: swarm_update_plain(*timed_args))
-    bound_ms, bound_by = swarm_update_bound_ms(N_CLASSES, N_PARTICLES, DIM)
+    to_time = [(shape, timed_args[shape],
+                swarm_update_work(*shape, int((timed_args[shape][4] < timed_args[shape][3]).sum())),
+                shape != (N_CLASSES, N_PARTICLES, DIM))
+               for shape in SWARM_TIMED]
     return {"name": "swarm_update", "route": "cuda",
             "source": "gan_discovery_pso_tpu_torch/csrc/swarm_update.cu",
             "replaces": "gan_discovery_pso_tpu/ops/pallas/swarm_update.py:32",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "parity": "bitwise", "shape": [N_CLASSES, N_PARTICLES, DIM]}
+            "max_abs_err": err, "library_ms": None, "parity": "bitwise",
+            "shape": list(SWARM_TIMED[0])}, to_time
 
 
-def check_rescale(models, device) -> dict:
-    """B2 against its plain version at [256,784] (real G images) and [9,300],
-    each with a constant row: fp32 bit-equal, bf16 equal to plain-then-cast."""
+def check_rescale(models, device) -> tuple[dict, list]:
+    """B2 against its plain version at every shape of RESCALE_SHAPES (the
+    first from real G images; one an offset view, whose base is not 16-byte
+    aligned), each with a constant row: fp32 bit-equal, bf16 equal to
+    plain-then-cast. Returns the kernel's record (without times and
+    launches) and what `time_kernel` times at RESCALE_TIMED in fp32."""
     import torch
 
     from gan_discovery_pso_tpu_torch.ops.kernels import rescale01_rows, rescale01_rows_plain
@@ -207,27 +306,35 @@ def check_rescale(models, device) -> dict:
     z = torch.randn((N_CLASSES * N_PARTICLES, DIM, 1, 1), generator=rng, device=device)
     with torch.no_grad():
         imgs = models[0](z).reshape(N_CLASSES * N_PARTICLES, -1)
-    small = torch.randn((9, 300), generator=rng, device=device)
+    inputs = {}
+    for n, f in RESCALE_SHAPES:
+        if (n, f) == (N_CLASSES * N_PARTICLES, 784):
+            x = imgs
+        else:
+            x = torch.randn((n, f), generator=rng, device=device)
+        inputs[(n, f)] = x
+    # an offset view: rows of odd length from a base 4 bytes past alignment
+    inputs["offset view"] = torch.randn((6, 301), generator=rng, device=device)[1:]
     err = 0.0
-    for x in (imgs, small):
-        x[3] = 0.25  # constant row: 0/0 → NaN
+    for label, x in inputs.items():
+        c = min(3, x.shape[0] - 1)
+        x[c] = 0.25  # constant row: 0/0 → NaN
         for out_dtype in (torch.float32, torch.bfloat16):
             got, want = rescale01_rows(x, out_dtype), rescale01_rows_plain(x, out_dtype)
             torch.cuda.synchronize()
             err = max(err, bits_equal(got, want))
-            if not bool(torch.isnan(got[3]).all()):
+            if not bool(torch.isnan(got[c]).all()):
                 raise AssertionError("a constant row must give NaN")
-        log(f"rescale01_rows {list(x.shape)}: bit-equal to plain in fp32 and bf16")
-    x = imgs
-    ms, plain_ms = in_turns(lambda: rescale01_rows(x), lambda: rescale01_rows_plain(x))
-    n, f = x.shape
-    bound_ms, bound_by = rescale_bound_ms(n, f, 4)
+        log(f"rescale01_rows {list(x.shape)} ({label}, base % 16 = {x.data_ptr() % 16}): "
+            "bit-equal to plain in fp32 and bf16")
+    to_time = [((n, f), (inputs[(n, f)],), rescale_work(n, f, 4),
+                (n, f) != (N_CLASSES * N_PARTICLES, 784))
+               for n, f in RESCALE_TIMED]
     return {"name": "rescale01_rows", "route": "cuda",
             "source": "gan_discovery_pso_tpu_torch/csrc/rescale.cu",
             "replaces": "gan_discovery_pso_tpu/ops/pallas/rescale.py:38",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "parity": "bitwise", "shape": [n, f]}
+            "max_abs_err": err, "library_ms": None, "parity": "bitwise",
+            "shape": list(RESCALE_TIMED[0])}, to_time
 
 
 def drive_main_path(models, device, dtype, kernels, hp=None, classes=None, **draws):
@@ -253,17 +360,17 @@ def drive_main_path(models, device, dtype, kernels, hp=None, classes=None, **dra
     return final, hist, seconds, {k.__name__: k.launches for k in kernels}
 
 
-def profile_main_path(models, device, kernels) -> dict:
-    """One fp32 main-path run under torch.profiler: wall time, device busy
-    time (the sum of the device intervals of kernels, copies and sets on the
-    one stream), the idle share, device µs per launch of each port kernel,
-    and the kernels taking most device time."""
+def profile_main_path(models, device, kernels, dtype=None) -> dict:
+    """One main-path run (fp32, or `dtype`) under torch.profiler: wall time,
+    device busy time (the sum of the device intervals of kernels, copies and
+    sets on the one stream), the idle share, device µs per launch of each
+    port kernel, and the kernels taking most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, seconds, _ = drive_main_path(models, device, None, kernels)
+        _, _, seconds, _ = drive_main_path(models, device, dtype, kernels)
     per_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -274,8 +381,8 @@ def profile_main_path(models, device, kernels) -> dict:
         return {"device_time": "not measured (the profiler recorded no device events)"}
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
     ours = {}
-    for name in ("rescale01_rows", "swarm_update"):
-        hits = [v for k, v in per_name.items() if f"{name}_kernel" in k]
+    for name, kernel_names in KERNEL_NAMES.items():
+        hits = [v for k, v in per_name.items() if any(kn in k for kn in kernel_names)]
         ours[name] = (sum(t for t, _ in hits), sum(c for _, c in hits))
     return {
         "wall_ms": seconds * 1e3, "device_busy_ms": busy_us / 1e3,
@@ -329,8 +436,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from gan_discovery_pso_tpu_torch.core import PsoConfig
-    from gan_discovery_pso_tpu_torch.ops.kernels import KERNELS, _build
+    from gan_discovery_pso_tpu_torch.ops.kernels import (
+        KERNELS, _build, rescale01_rows, rescale01_rows_plain, swarm_update, swarm_update_plain)
 
     card = card_line()
     log(f"card: {card}")
@@ -343,7 +450,9 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {so.name}")
 
     models = build_models(device)
-    records = [check_swarm_update(models, device), check_rescale(models, device)]
+    swarm_rec, swarm_to_time = check_swarm_update(models, device)
+    rescale_rec, rescale_to_time = check_rescale(models, device)
+    records = [swarm_rec, rescale_rec]
 
     evals = N_CLASSES * N_PARTICLES * N_ITERATIONS
     results = {}
@@ -374,8 +483,14 @@ def main() -> int:
     log(f"evals/s warm: fp32 {evals / s32:.0f}, bf16 {evals / s16:.0f} ({card})")
     prof = profile_main_path(models, device, KERNELS)
     log("profile fp32 main path: " + json.dumps(prof))
+    log("profile bf16 main path: "
+        + json.dumps(profile_main_path(models, device, KERNELS, torch.bfloat16)))
     diff = check_against_cpu(models, device, KERNELS)
     log(f"small input: card path (kernels) agrees with the CPU path (plain) to {diff:.3e}")
+    # the standalone timings come last, so that the main path's numbers are
+    # taken before this process has run any profiler session
+    time_kernel(swarm_rec, swarm_update, swarm_update_plain, swarm_to_time)
+    time_kernel(rescale_rec, rescale01_rows, rescale01_rows_plain, rescale_to_time)
 
     for rec in records:
         rec["launches"] = launches32[rec["name"]]

@@ -1,10 +1,10 @@
-// The fused post-fitness PSO update, one block per swarm.
+// The fused post-fitness PSO update, on a grid of (particle tile, swarm).
 //
 // Replaces the Pallas TPU kernel gan_discovery_pso_tpu/ops/pallas/swarm_update.py
 // (_kernel, called by pso_update_pallas from pso/swarm.py:pso_iteration_pallas).
 // The JAX package runs it under a class vmap; here the class axis is a
-// written-out batch dimension: grid = number of swarms B, each swarm of N
-// particles in d dimensions. In order, per swarm:
+// written-out batch dimension: B swarms, each of N particles in d dimensions.
+// In order, per swarm:
 //   1. personal best where fitness < p_best_val;
 //   2. global-best argmin over p_best_val, NaN first, then the lowest value,
 //      the lowest index winning a tie (torch.argmin's order);
@@ -16,18 +16,36 @@
 //   5. x += vel.
 //
 // Bound: bytes. About 10 operations per 24 bytes of particle state read and
-// written. At [8, 32, 100] the function moves about 0.63 MB, about 0.19 us at
-// 3.35 TB/s: a launch at main-path shapes is bound by launch latency, and the
-// gain over the plain version is the ~20 kernels it replaces.
+// written (pos, vel, p_best_pos in; pos, vel, p_best_pos out). At [8, 32, 100]
+// the function moves about 0.63 MB (0.19 us at 3.35 TB/s), so a launch there
+// is bound by launch latency; at the Pallas kernel's range, [1, 4096, 1024],
+// it moves about 100.7 MB (30 us).
 //
-// Design: phase 1 loops over the N particles (one value each), writes the new
-// p_best_val and reduces (value, index) pairs with warp shuffles and one
-// shared-memory step. Phase 2 loops over the N*d elements. The winning row of
-// the new p_best_pos is computed from the inputs (improved[cand] ? pos : pbp)
-// rather than read back, so no block reads its own global writes. Loops make
-// any N and d work in one block: no TPU-style (8, 128) padding and no second
-// grid phase. The inertia w and the global-best values are device tensors
-// [B], so the caller's loop never waits on the host.
+// Design, for Hopper's 132 SMs:
+// - Grid (tiles, B). A CTA owns a contiguous tile of particle rows; the
+//   wrapper's geometry helper (ops/kernels/swarm_update.py:swarm_geometry)
+//   sizes tiles so that B = 1 fills the card too, with at least one row per
+//   warp.
+// - The argmin needs every particle of the swarm, so every CTA of a swarm
+//   reduces min(fit, p_best_val) over all N itself: 8*N bytes from L2, next
+//   to the 24*d bytes per row of its tile, with warp shuffles and one
+//   shared-memory step. No CTA talks to another, and since (value, index)
+//   is a total order, every CTA finds the same winner. Chosen over a thread
+//   block cluster reducing through distributed shared memory: the redundant
+//   pass is short next to the tile's streaming even at N = 4096, and a
+//   cluster would cap the grid's x extent and its scheduling.
+// - The winning row is computed from the inputs (improved[cand] ? pos : pbp),
+//   so no CTA reads another's writes. Tile 0 alone writes g_best_pos,
+//   g_best_val, g_prev_val and the flag; each CTA writes p_best_val for its
+//   own rows.
+// - The move: one warp per row. The row's fit, p_best_val, r1 and r2 are
+//   loaded once into registers; lanes walk d with float4 loads and stores
+//   (when d % 4 == 0 and the rows are 16-byte aligned, else scalar), with no
+//   per-element index arithmetic and no integer divide. p_best_pos is not
+//   read for a row that improved. The g-best row (d <= 1024) is staged once
+//   per CTA in shared memory.
+// - w, g_best_val and g_prev_val are device tensors [B], so the caller's
+//   loop never waits on the host.
 //
 // Numerics: each product and sum is rounded on its own (__fmul_rn etc.), in
 // the plain PyTorch version's association order, so the result is bit-equal
@@ -36,28 +54,22 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxStagedD = 1024;  // the g-best row staged in shared memory
 
-// true when (av, ai) comes before (bv, bi) in torch.argmin's order
-__device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
-  const bool a_nan = av != av;
-  const bool b_nan = bv != bv;
-  if (a_nan != b_nan) return a_nan;
-  if (!a_nan && av != bv) return av < bv;
-  return ai < bi;
+__device__ __forceinline__ float new_velocity(float wb, float v, float a, float g,
+                                              float x, float s, float p) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(wb, v), __fmul_rn(a, __fsub_rn(g, x))),
+                   __fmul_rn(s, __fsub_rn(p, x)));
 }
 
-__device__ __forceinline__ void take_if_before(float& v, int& i, float ov,
-                                               int oi) {
-  if (before(ov, oi, v, i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
+// kVecD: d % 4 == 0 and the [., d] rows are 16-byte aligned.
+template <bool kVecD>
 __global__ void __launch_bounds__(kThreads) swarm_update_kernel(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ pbp, const float* __restrict__ pbv,
@@ -65,118 +77,174 @@ __global__ void __launch_bounds__(kThreads) swarm_update_kernel(
     const float* __restrict__ r2, const float* __restrict__ gbp,
     const float* __restrict__ gbv, const float* __restrict__ gpv,
     const float* __restrict__ w, float w_cogn, float w_soci,
-    float* __restrict__ out_pos, float* __restrict__ out_vel,
-    float* __restrict__ out_pbp, float* __restrict__ out_pbv,
-    float* __restrict__ out_gbp, float* __restrict__ out_gbv,
-    float* __restrict__ out_gpv, unsigned char* __restrict__ out_appended,
-    int n, int d) {
-  const int b = blockIdx.x;
+    float* __restrict__ out_big, float* __restrict__ out_small,
+    unsigned char* __restrict__ out_appended, int n_swarms, int n, int d,
+    int rows_per_cta) {
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rows_per_cta;
+  const int row1 = min(n, row0 + rows_per_cta);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // the outputs, carved from two buffers:
+  // out_big [pos | vel | p_best_pos], B*n*d each;
+  // out_small [g_best_pos (B*d) | p_best_val (B*n) | g_best_val (B) | g_prev_val (B)]
   const long long nd = static_cast<long long>(n) * d;
+  const long long bnd = n_swarms * nd;
+  float* out_pos = out_big + b * nd;
+  float* out_vel = out_big + bnd + b * nd;
+  float* out_pbp = out_big + 2 * bnd + b * nd;
+  float* out_gbp = out_small + static_cast<long long>(b) * d;
+  float* out_pbv = out_small + static_cast<long long>(n_swarms) * d + static_cast<long long>(b) * n;
+  float* out_gbv = out_small + static_cast<long long>(n_swarms) * (d + n);
+  float* out_gpv = out_gbv + n_swarms;
+
   pos += b * nd;
   vel += b * nd;
   pbp += b * nd;
-  out_pos += b * nd;
-  out_vel += b * nd;
-  out_pbp += b * nd;
   pbv += static_cast<long long>(b) * n;
   fit += static_cast<long long>(b) * n;
   r1 += static_cast<long long>(b) * n;
   r2 += static_cast<long long>(b) * n;
-  out_pbv += static_cast<long long>(b) * n;
   gbp += static_cast<long long>(b) * d;
-  out_gbp += static_cast<long long>(b) * d;
 
-  // phase 1: personal bests and the argmin over them
-  float best_v = __int_as_float(0x7f800000);  // +inf
-  int best_i = n;
+  // phase 1: argmin of min(fit, p_best_val) over the whole swarm
+  float best_v = gdpt::pos_inf();
+  int best_i = n;  // loses to every real index
+#pragma unroll 4
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const float f = fit[i];
     const float p = pbv[i];
-    const float v = f < p ? f : p;
-    out_pbv[i] = v;
-    take_if_before(best_v, best_i, v, i);
+    gdpt::take_if_before(best_v, best_i, f < p ? f : p, i);
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    take_if_before(best_v, best_i, __shfl_xor_sync(0xffffffffu, best_v, off),
-                   __shfl_xor_sync(0xffffffffu, best_i, off));
-  }
+  gdpt::warp_argmin(best_v, best_i);
   __shared__ float s_v[kWarps];
   __shared__ int s_i[kWarps];
-  __shared__ int s_cand;
-  __shared__ bool s_g_improved;
-  __shared__ bool s_cand_improved;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  __shared__ __align__(16) float s_g[kMaxStagedD];
   if (lane == 0) {
     s_v[warp] = best_v;
     s_i[warp] = best_i;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 1; k < kWarps; ++k) take_if_before(best_v, best_i, s_v[k], s_i[k]);
-    const int cand = best_i;
-    const float g_old = gbv[b];
-    const bool g_improved = best_v < g_old;
+  // every warp reduces the per-warp winners itself: no lone thread, no
+  // second barrier
+  best_v = lane < kWarps ? s_v[lane] : gdpt::pos_inf();
+  best_i = lane < kWarps ? s_i[lane] : n;
+  gdpt::warp_argmin(best_v, best_i);
+
+  const int cand = best_i;
+  const float g_old = gbv[b];
+  const bool g_improved = best_v < g_old;
+  const float* g_src =
+      g_improved ? (fit[cand] < pbv[cand] ? pos : pbp) + cand * static_cast<long long>(d)
+                 : gbp;
+  const bool tile0 = blockIdx.x == 0;
+  if (tile0 && threadIdx.x == 0) {
     const bool appended = g_improved && !isinf(g_old);
     out_gbv[b] = g_improved ? best_v : g_old;
     out_gpv[b] = appended ? g_old : gpv[b];
     out_appended[b] = appended ? 1 : 0;
-    s_cand = cand;
-    s_g_improved = g_improved;
-    s_cand_improved = fit[cand] < pbv[cand];
   }
-  __syncthreads();
 
-  // phase 2: the move
-  const int cand = s_cand;
-  const bool g_improved = s_g_improved;
-  const float* cand_row = (s_cand_improved ? pos : pbp) + cand * static_cast<long long>(d);
-  const float wb = w[b];
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    out_gbp[j] = g_improved ? cand_row[j] : gbp[j];
+  // the g-best row, staged once per CTA (uniform branch: d is the same for
+  // every thread)
+  const bool staged = d <= kMaxStagedD;
+  if (staged || tile0) {
+    float* dst = staged ? s_g : out_gbp;
+    if (kVecD) {
+      const float4* src4 = reinterpret_cast<const float4*>(g_src);
+      for (int q = threadIdx.x; q < (d >> 2); q += kThreads) {
+        const float4 v = src4[q];
+        reinterpret_cast<float4*>(dst)[q] = v;
+        if (staged && tile0) reinterpret_cast<float4*>(out_gbp)[q] = v;
+      }
+    } else {
+      for (int j = threadIdx.x; j < d; j += kThreads) {
+        const float v = g_src[j];
+        dst[j] = v;
+        if (staged && tile0) out_gbp[j] = v;
+      }
+    }
   }
-  for (long long e = threadIdx.x; e < nd; e += kThreads) {
-    const int i = static_cast<int>(e / d);
-    const int j = static_cast<int>(e - static_cast<long long>(i) * d);
-    const float x = pos[e];
-    const float p = fit[i] < pbv[i] ? x : pbp[e];
-    const float g = g_improved ? cand_row[j] : gbp[j];
-    out_pbp[e] = p;
-    const float v_new = __fadd_rn(
-        __fadd_rn(__fmul_rn(wb, vel[e]),
-                  __fmul_rn(__fmul_rn(w_cogn, r1[i]), __fsub_rn(g, x))),
-        __fmul_rn(__fmul_rn(w_soci, r2[i]), __fsub_rn(p, x)));
-    out_vel[e] = v_new;
-    out_pos[e] = __fadd_rn(x, v_new);
+  if (staged) __syncthreads();
+  const float* g = staged ? s_g : g_src;
+
+  // phase 2: the move, one warp per row of this CTA's tile
+  const float wb = w[b];
+  for (int i = row0 + warp; i < row1; i += kWarps) {
+    const float f = fit[i];
+    const float pv = pbv[i];
+    const bool improved = f < pv;
+    const float a = __fmul_rn(w_cogn, r1[i]);
+    const float s = __fmul_rn(w_soci, r2[i]);
+    if (lane == 0) out_pbv[i] = improved ? f : pv;
+    const long long base = static_cast<long long>(i) * d;
+    if (kVecD) {
+      const float4* x4 = reinterpret_cast<const float4*>(pos + base);
+      const float4* v4 = reinterpret_cast<const float4*>(vel + base);
+      const float4* p4 = reinterpret_cast<const float4*>(pbp + base);
+      const float4* g4 = reinterpret_cast<const float4*>(g);
+      float4* o_x4 = reinterpret_cast<float4*>(out_pos + base);
+      float4* o_v4 = reinterpret_cast<float4*>(out_vel + base);
+      float4* o_p4 = reinterpret_cast<float4*>(out_pbp + base);
+#pragma unroll 2
+      for (int q = lane; q < (d >> 2); q += 32) {
+        const float4 x = x4[q];
+        const float4 v = v4[q];
+        float4 p = x;
+        if (!improved) p = p4[q];
+        const float4 gg = g4[q];
+        float4 nv;
+        nv.x = new_velocity(wb, v.x, a, gg.x, x.x, s, p.x);
+        nv.y = new_velocity(wb, v.y, a, gg.y, x.y, s, p.y);
+        nv.z = new_velocity(wb, v.z, a, gg.z, x.z, s, p.z);
+        nv.w = new_velocity(wb, v.w, a, gg.w, x.w, s, p.w);
+        o_p4[q] = p;
+        o_v4[q] = nv;
+        o_x4[q] = make_float4(__fadd_rn(x.x, nv.x), __fadd_rn(x.y, nv.y),
+                              __fadd_rn(x.z, nv.z), __fadd_rn(x.w, nv.w));
+      }
+    } else {
+      for (int j = lane; j < d; j += 32) {
+        const float x = pos[base + j];
+        const float p = improved ? x : pbp[base + j];
+        const float nv = new_velocity(wb, vel[base + j], a, g[j], x, s, p);
+        out_pbp[base + j] = p;
+        out_vel[base + j] = nv;
+        out_pos[base + j] = __fadd_rn(x, nv);
+      }
+    }
   }
 }
 
 }  // namespace
 
 // Tensors are fp32 and contiguous: pos, vel, pbp [B, n, d]; pbv, fit, r1, r2
-// [B, n]; gbp [B, d]; gbv, gpv, w [B]. Outputs of the same shapes, plus
-// out_appended [B] bool. n >= 1. Returns the cudaError_t of the launch.
+// [B, n]; gbp [B, d]; gbv, gpv, w [B]. The outputs: out_big, 3*B*n*d
+// floats, and out_small, B*d + B*n + 2*B floats, laid out as in the
+// kernel; out_appended [B] bool. Grid: ceil(n / rows_per_cta) CTAs of
+// rows_per_cta particle rows per swarm; vec_d selects the float4 rows.
+// Returns the cudaError_t of the launch.
 extern "C" int gdpt_swarm_update(
     const void* pos, const void* vel, const void* pbp, const void* pbv,
     const void* fit, const void* r1, const void* r2, const void* gbp,
     const void* gbv, const void* gpv, const void* w, float w_cogn,
-    float w_soci, void* out_pos, void* out_vel, void* out_pbp, void* out_pbv,
-    void* out_gbp, void* out_gbv, void* out_gpv, void* out_appended,
-    int n_swarms, int n, int d, void* stream) {
+    float w_soci, void* out_big, void* out_small, void* out_appended,
+    int n_swarms, int n, int d, int rows_per_cta, int vec_d, void* stream) {
   if (n_swarms > 0 && n > 0) {
-    swarm_update_kernel<<<n_swarms, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    if (rows_per_cta < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((n + rows_per_cta - 1) / rows_per_cta, n_swarms);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    auto kernel = vec_d ? swarm_update_kernel<true> : swarm_update_kernel<false>;
+    kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(pos), static_cast<const float*>(vel),
         static_cast<const float*>(pbp), static_cast<const float*>(pbv),
         static_cast<const float*>(fit), static_cast<const float*>(r1),
         static_cast<const float*>(r2), static_cast<const float*>(gbp),
         static_cast<const float*>(gbv), static_cast<const float*>(gpv),
-        static_cast<const float*>(w), w_cogn, w_soci,
-        static_cast<float*>(out_pos), static_cast<float*>(out_vel),
-        static_cast<float*>(out_pbp), static_cast<float*>(out_pbv),
-        static_cast<float*>(out_gbp), static_cast<float*>(out_gbv),
-        static_cast<float*>(out_gpv), static_cast<unsigned char*>(out_appended),
-        n, d);
+        static_cast<const float*>(w), w_cogn, w_soci, static_cast<float*>(out_big),
+        static_cast<float*>(out_small), static_cast<unsigned char*>(out_appended),
+        n_swarms, n, d, rows_per_cta);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,9 @@ Every `*.cu` file in `gan_discovery_pso_tpu_torch/csrc/` exports plain C
 entry points (no PyTorch headers), so a build takes seconds. At first use the
 sources are compiled for `sm_90a`, one nvcc per source started together, and
 linked into one shared library under `gan_discovery_pso_tpu_torch/_build/`,
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads the library already built. A failed build raises with
+named by a hash of every file in `csrc/` (sources and the `*.cuh` headers
+they include) and the flags, so an edited source or header rebuilds and an
+unchanged tree loads the library already built. A failed build raises with
 nvcc's output; nothing falls back.
 
 Nothing here runs at import: the package imports on hosts with no nvcc and
@@ -22,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -33,12 +36,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes, for every entry point of the library; each returns the
 # cudaError_t of its launch as an int
 _SIGNATURES = {
-    "gdpt_rescale01_rows": (_P, _P, _I, _I, _I, _P),
+    # x, out, n, f, out_bf16, team, rows_per_cta, vec, stream
+    "gdpt_rescale01_rows": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "gdpt_swarm_update": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
         _F, _F,  # w_cognitive, w_social
-        _P, _P, _P, _P, _P, _P, _P, _P,  # outputs
-        _I, _I, _I, _P),  # n_swarms, n_particles, dim, stream
+        _P, _P, _P,  # the two fp32 output buffers, the bool flags
+        _I, _I, _I,  # n_swarms, n_particles, dim
+        _I, _I,  # rows_per_cta, vec_d
+        _P),  # stream
 }
 
 _lock = threading.Lock()
@@ -55,9 +61,9 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"libgdpt_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -101,8 +107,11 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call. Its entry points are
+    looked up once: ctypes keeps each on the library object."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -112,6 +121,18 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def call(fn, device, *args) -> int:
+    """fn(*args, stream) on `device`'s current stream, making `device`
+    current only when it is not already; returns fn's cudaError_t."""
+    # the raw handle, as PyTorch's own kernel launchers read it, without
+    # building a torch.cuda.Stream object on every call
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
 
 
 def check(err: int, name: str) -> None:

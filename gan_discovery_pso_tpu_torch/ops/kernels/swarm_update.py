@@ -2,18 +2,20 @@
 its plain PyTorch version.
 
 Counterpart of `gan_discovery_pso_tpu/ops/pallas/swarm_update.py`
-(`pso_update_pallas`), batched over swarms: [B, N, d] with one CUDA block
-per swarm, where the JAX package calls its kernel under a class vmap. The
-inertia schedule and the early stop stay with the caller
+(`pso_update_pallas`), batched over swarms: [B, N, d] on a grid of
+(particle tile, swarm), where the JAX package calls its kernel under a
+class vmap. The inertia schedule and the early stop stay with the caller
 (`pso/swarm.py:pso_iteration`), as in the JAX package.
 
 The wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises. `swarm_update.launches` counts kernel
-launches.
+launches. `swarm_geometry` and `vector_path` are the pure-Python choices
+of the launch: tile size and the float4 or scalar rows.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -57,47 +59,96 @@ def swarm_update_plain(pos, vel, p_best_pos, p_best_val, fitness, r1, r2,
     return SwarmUpdate(pos + new_vel, new_vel, pbp, pbv, gbp, gbv, gpv, appended)
 
 
+WARPS = 8  # warps per CTA: csrc/swarm_update.cu:kWarps (256 threads)
+CTAS_PER_SM = 2
+MAX_SWARMS = 65535  # the grid's y extent
+
+
+def swarm_geometry(b: int, n: int, sms: int) -> int:
+    """Particle rows per CTA of the grid (ceil(n / rows), b).
+
+    Tile t covers rows [t*rows, min(n, (t+1)*rows)). Tiles hold a multiple
+    of WARPS rows, so every warp walks as many rows, and are as large as
+    still gives CTAS_PER_SM CTAs per SM over all b swarms, or one row per
+    warp where the rows are too few for that: B = 1, N = 4096 gets 512 CTAs
+    of 8 rows, the main path's [8, 32, .] 32 CTAs of 8."""
+    tiles_wanted = -(-CTAS_PER_SM * sms // b)
+    return WARPS * max(1, n // (tiles_wanted * WARPS))
+
+
+def vector_path(d: int, row_ptrs) -> bool:
+    """float4 rows when d % 4 == 0 and every [., d] row base (row_ptrs) is
+    16-byte aligned; else scalar rows."""
+    acc = 0
+    for p in row_ptrs:
+        acc |= p
+    return d % 4 == 0 and acc % 16 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _shapes(b, n, d):
+    return ((b, n, d),) * 3 + ((b, n),) * 4 + ((b, d),) + ((b,),) * 3
+
+
 def _check(pos, args):
+    if pos.dim() != 3:
+        raise ValueError(f"swarm_update: positions must be [B, N, d], got {tuple(pos.shape)}")
     b, n, d = pos.shape
-    shapes = ((b, n, d), (b, n, d), (b, n), (b, n), (b, n), (b, n), (b, d),
-              (b,), (b,), (b,))
-    for t, shape in zip((pos, *args), ((b, n, d), *shapes)):
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or t.device != pos.device or not t.is_contiguous()):
+    shapes = _shapes(b, n, d)
+    index = pos.get_device()
+    for t, shape in zip((pos, *args), shapes):
+        if (t.shape != shape or t.dtype != torch.float32 or t.get_device() != index
+                or not t.is_contiguous()):
             raise ValueError(
                 "swarm_update: expected contiguous fp32 tensors on one device "
-                f"of shapes {[(b, n, d), *shapes]}; got {tuple(t.shape)} "
-                f"{t.dtype} on {t.device}")
+                f"of shapes {list(shapes)}; got {tuple(t.shape)} {t.dtype} on {t.device}")
     if n < 1:
         raise ValueError("swarm_update: a swarm needs at least one particle")
+    if b > MAX_SWARMS:
+        raise ValueError(f"swarm_update: at most {MAX_SWARMS} swarms in one launch, got {b}")
 
 
 def swarm_update(pos, vel, p_best_pos, p_best_val, fitness, r1, r2,
                  g_best_pos, g_best_val, g_prev_val, w,
-                 w_cognitive: float, w_social: float) -> SwarmUpdate:
-    """One fused PSO update of B swarms; arguments as `swarm_update_plain`."""
+                 w_cognitive: float, w_social: float, *,
+                 rows_per_cta: int | None = None) -> SwarmUpdate:
+    """One fused PSO update of B swarms; arguments as `swarm_update_plain`.
+    On the card the outputs are views of two fp32 buffers (and a bool one):
+    few allocations, since the host's time per call is most of a launch's.
+    `rows_per_cta` overrides `swarm_geometry`'s tile (a launch-geometry
+    sweep); the CPU ignores it."""
     args = (vel, p_best_pos, p_best_val, fitness, r1, r2, g_best_pos,
             g_best_val, g_prev_val, w)
-    if pos.device.type == "cpu":
+    dev = pos.device
+    if dev.type == "cpu":
         return swarm_update_plain(pos, *args, w_cognitive, w_social)
-    if pos.device.type != "cuda":
-        raise ValueError(f"swarm_update: unsupported device {pos.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"swarm_update: unsupported device {dev}")
     _check(pos, args)
     b, n, d = pos.shape
-    outs = SwarmUpdate(
-        *(torch.empty_like(t) for t in (pos, vel, p_best_pos, p_best_val,
-                                        g_best_pos, g_best_val, g_prev_val)),
-        torch.empty((b,), dtype=torch.bool, device=pos.device))
-    lib = _build.library()
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gdpt_swarm_update(
-            *(t.data_ptr() for t in (pos, *args)),
-            float(w_cognitive), float(w_social),
-            *(t.data_ptr() for t in outs), b, n, d, stream)
+    big = pos.new_empty((3, b, n, d))
+    small = pos.new_empty(b * d + b * n + 2 * b)
+    appended = g_best_val.new_empty((b,), dtype=torch.bool)
+    ptrs = [t.data_ptr() for t in (pos, *args)]
+    big_ptr, small_ptr = big.data_ptr(), small.data_ptr()
+    if rows_per_cta is None:
+        rows_per_cta = swarm_geometry(b, n, _sm_count(dev.index))
+    vec_d = vector_path(d, (ptrs[0], ptrs[1], ptrs[2], ptrs[7], big_ptr, small_ptr))
+    err = _build.call(_build.library().gdpt_swarm_update, dev, *ptrs,
+                      float(w_cognitive), float(w_social), big_ptr, small_ptr,
+                      appended.data_ptr(), b, n, d, rows_per_cta, vec_d)
     _build.check(err, "swarm_update")
     swarm_update.launches += 1
-    return outs
+    o_pos, o_vel, o_pbp = big.unbind(0)
+    # the kernel's layout of `small`: g_best_pos | p_best_val | g_best_val | g_prev_val
+    o_gbp, o_pbv, o_gbv, o_gpv = small.split_with_sizes((b * d, b * n, b, b))
+    return SwarmUpdate(o_pos, o_vel, o_pbp, o_pbv.view(b, n), o_gbp.view(b, d),
+                       o_gbv, o_gpv, appended)
 
 
 swarm_update.launches = 0
