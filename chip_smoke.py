@@ -15,8 +15,14 @@ classes x 32 particles x 50 iterations, z=100, DCGAN G(64), ResNet-50 with
 that every kernel of the path launched once per iteration, profiles one
 fp32 and one bf16 run, checks the results (finite, in [eps, 1+eps],
 reproducible, the bf16 gate, agreement with the CPU path on a small
-input), then times each kernel at the main path's shape and at a large one
-(device µs per launch from the profiler, beside the bound), and prints:
+input), runs the pso-discovery stage through its CLI on JAX-format
+checkpoints of the same models (the pipeline phase, between the main-path
+runs and the first profiler session: batched fp32 bit-equal to the runner,
+sequential, the shipped dimension 2 with its landscape, bf16), then times
+each kernel at the main path's shape and at a large one (device µs per
+launch from the profiler over the last 50 of 60 calls in a session, as
+the profiler loses the kernel events of a session's first calls; beside
+the bound), and prints:
 
     card: <nvidia-smi name, power limit>
     ... progress lines ...
@@ -32,10 +38,13 @@ from __future__ import annotations
 
 import itertools
 import json
+import pickle
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_CLASSES, N_PARTICLES, N_ITERATIONS, DIM = 8, 32, 50, 100
@@ -46,22 +55,29 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32, outside the tensor cores
 TIMED_LAUNCHES = 200
 PROFILED_LAUNCHES = 50
+PROFILER_SESSIONS = 3  # tries at a session that keeps its timed launches
+PROFILER_LEAD_CALLS = 10  # calls a session makes before its timed ones
 L2_BYTES = 50 * 2**20  # H100 L2
+LANDSCAPE = 100  # points per axis of the stage's 2-D fitness mesh
+SEQ_TOL = 1e-4  # sequential vs batched g_best (tests/test_pipeline_e2e.py:511-514)
+CFG = ROOT / "configs" / "dcgan_mnist.yaml"
 # B1 bit-equality shapes [B, N, d]: the main path, 256 particles, unpadded,
 # the B = 1 runner, the stacked x4 program, N and d fitting no tile or
 # float4, the Pallas kernel's range, and d past the g-best row staged in
-# shared memory (1024), with and without float4; then the shapes timed
+# shared memory (1024), with and without float4; the shipped dimension
+# d = 2 (scalar rows), batched and sequential
 SWARM_SHAPES = ((N_CLASSES, N_PARTICLES, DIM), (N_CLASSES, 256, DIM), (3, 13, 7),
                 (1, N_PARTICLES, DIM), (4 * N_CLASSES, N_PARTICLES, DIM), (2, 37, 13),
-                (1, 4096, 1024), (1, 16, 2048), (2, 9, 1030))
+                (1, 4096, 1024), (1, 16, 2048), (2, 9, 1030),
+                (N_CLASSES, N_PARTICLES, 2), (1, N_PARTICLES, 2))
 SWARM_TIMED = ((N_CLASSES, N_PARTICLES, DIM), (1, 4096, 1024))
 # B2 [N, F]: the main path's images, short unaligned and odd rows, many rows,
 # rows in registers at every team size (8, 4, 2, 1 warps) and register
 # depth (1 to 32 float4 a thread), long rows (one CTA each; 65536 = a
-# 256x256 CLARO slice, 4099 odd)
+# 256x256 CLARO slice, 4099 odd), the 2-D landscape's 100x100 mesh
 RESCALE_SHAPES = ((N_CLASSES * N_PARTICLES, 784), (9, 300), (5, 301), (4096, 784),
                   (600, 1500), (1500, 2049), (3000, 203), (2100, 4000),
-                  (4, 65536), (3, 4099))
+                  (4, 65536), (3, 4099), (LANDSCAPE ** 2, 784))
 RESCALE_TIMED = ((N_CLASSES * N_PARTICLES, 784), (4096, 784))
 # device kernel names of each wrapper, as the profiler reports them
 KERNEL_NAMES = {"swarm_update": ("swarm_update_kernel",),
@@ -171,29 +187,72 @@ def bound_ms(nbytes, ops) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def device_us(fn, kernel_names, launches: int = PROFILED_LAUNCHES) -> tuple[float, int]:
-    """(device µs per launch, launches profiled) of `fn`'s kernel over
-    `launches` standalone launches, from the profiler's device events whose
-    name holds one of `kernel_names`. The profiler has been seen to drop
-    events when other kernels run between the launches; the mean is over
-    the events it kept, and fewer than half of them fails."""
+def profile_session(fn, kernel_names, launches: int = PROFILED_LAUNCHES,
+                    lead_calls: int = PROFILER_LEAD_CALLS) -> tuple[list, dict]:
+    """One profiler session over `lead_calls + launches` calls of `fn`:
+    (device µs of the last `launches` kept kernel events, the session's
+    record). Kernel events are the device events whose name holds one of
+    `kernel_names`. The record holds the calls, the launch-API events and
+    kernel events kept, and, where each call launched one kernel, the
+    calls (by index in call order) whose kernel event was lost: a call and
+    its kernel share a correlation id."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    calls = lead_calls + launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    start = lambda e: e.time_range.start  # noqa: E731
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and any(k in e.name for k in kernel_names)), key=start)
+    api = sorted((e for e in events
+                  if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name), key=start)
+    kept_ids = {e.id for e in kernels}
+    record = {"calls": calls, "launch_api": len(api), "kept": len(kernels),
+              "calls_without_kernel": ([i for i, e in enumerate(api) if e.id not in kept_ids]
+                                       if len(api) == calls else None)}
+    return [e.time_range.elapsed_us() for e in kernels[-launches:]], record
+
+
+def leading_loss(record: dict) -> bool:
+    """The session lost the kernel events of its first calls and no other:
+    what the profiler does on the card (profiler_check.py, PERF.md §6)."""
+    lost = record["calls_without_kernel"]
+    return lost is not None and lost == list(range(len(lost)))
+
+
+def device_us(fn, kernel_names, launches: int = PROFILED_LAUNCHES,
+              sessions: int = PROFILER_SESSIONS) -> tuple[float, int, list]:
+    """(device µs per launch, launches measured, the session records) of
+    `fn`'s kernel over `launches` standalone launches, from the profiler's
+    device events. The profiler loses the kernel events of a session's
+    first calls (0-2 as a rule, now and then many more): each session
+    makes PROFILER_LEAD_CALLS calls before the timed ones and measures the
+    last `launches` kernel events it kept. A session that lost more than
+    its lead calls, all of them first calls, is made again, up to
+    `sessions`; a session that lost a later call, or kept more events than
+    it made calls, fails."""
+    import torch
+
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernel_names)]
-    if not launches // 2 <= len(times) <= launches:
-        raise AssertionError(f"profiler saw {len(times)} launches of {kernel_names}, "
-                             f"not {launches}")
-    return sum(times) / len(times), len(times)
+    records = []
+    for _ in range(sessions):
+        times, record = profile_session(fn, kernel_names, launches)
+        records.append(record)
+        if record["kept"] > record["calls"] or (
+                record["calls_without_kernel"] and not leading_loss(record)):
+            raise AssertionError(f"profiler session {record} of {kernel_names}: "
+                                 "not a loss of its first calls")
+        if record["kept"] >= launches:
+            return sum(times) / len(times), len(times), records
+    raise AssertionError(f"profiler sessions {records} kept fewer than {launches} "
+                         f"events of {kernel_names}")
 
 
 def time_shape(kernel, plain, arg_sets, kernel_names, shape, bound) -> dict:
@@ -204,12 +263,12 @@ def time_shape(kernel, plain, arg_sets, kernel_names, shape, bound) -> dict:
     cycle = itertools.cycle(arg_sets)
     k = lambda: kernel(*next(cycle))
     ms, plain_ms = in_turns(k, lambda: plain(*next(cycle)))
-    us, profiled = device_us(k, kernel_names)
+    us, profiled, sessions = device_us(k, kernel_names)
     b_ms, bound_by = bound
     return {"shape": list(shape), "device_us": us, "ms": ms, "plain_ms": plain_ms,
             "bound_us": b_ms * 1e3, "bound_by": bound_by,
             "share_of_bound": b_ms * 1e3 / us, "input_copies": len(arg_sets),
-            "profiled_launches": profiled}
+            "profiled_launches": profiled, "profiler_sessions": sessions}
 
 
 def time_kernel(record, kernel, plain, to_time) -> None:
@@ -422,6 +481,287 @@ def check_against_cpu(models, device, kernels) -> float:
     return float((on_card.fitness.cpu() - on_cpu.fitness).abs().max())
 
 
+def write_checkpoints(models_root: Path, run_id: int, gen=None, cnn=None) -> dict:
+    """The models as a JAX run's checkpoints, through the port's writer and
+    the inverse weight mapping: `<models>/mnist/{id}--dcgan/best_g.msgpack`
+    and `<models>/mnist/{id}--cnn_multipatient/model.msgpack`."""
+    from gan_discovery_pso_tpu_torch.compat import generator_tree, resnet_tree
+    from gan_discovery_pso_tpu_torch.core.checkpoint import save_pytree
+
+    dirs = {}
+    if gen is not None:
+        gp, gs = generator_tree(gen.state_dict())
+        dirs["gan"] = models_root / "mnist" / f"{run_id:05d}--dcgan"
+        save_pytree(dirs["gan"] / "best_g.msgpack",
+                    {"epoch": 0, "state": {"gen_params": gp, "gen_state": gs}, "loss": 0.0})
+    if cnn is not None:
+        rp, rs = resnet_tree(cnn.state_dict())
+        dirs["cnn"] = models_root / "mnist" / f"{run_id:05d}--cnn_multipatient"
+        save_pytree(dirs["cnn"] / "model.msgpack", {"params": rp, "state": rs})
+    return dirs
+
+
+def check_loaded(original, loaded, what: str) -> None:
+    """Every parameter and buffer of the loaded model bit-equal to the
+    original's."""
+    import torch
+
+    a, b = original.state_dict(), loaded.state_dict()
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: state-dict names differ")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs after the checkpoint round trip")
+
+
+def run_cli(tmp: Path, label: str, dirs: dict, device, kernels, *flags, sets=()) -> dict:
+    """`cli.main(["pso-discovery", ...])` in this process, with its run dirs
+    under tmp/label: the launches of each kernel (counts zeroed just
+    before), the wall time, timing.json, the per-class g_best and
+    trajectories, and the artifact seconds the stage logged."""
+    import re
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.cli.main import main as cli_main
+
+    roots = {k: tmp / label / k for k in ("reports", "models", "interim")}
+    argv = ["pso-discovery", "--cfg", str(CFG), "--path-gan", str(dirs["gan"]),
+            "--path-cnn", str(dirs["cnn"]), "--device", str(device), *flags, "--set",
+            f"data.reports_dir={roots['reports']}", f"data.model_dir={roots['models']}",
+            f"data.interim_dir={roots['interim']}", *sets]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    if rc != 0:
+        raise AssertionError(f"pipeline {label}: the CLI returned {rc}")
+    reports = roots["reports"] / "mnist" / "00001--pso_discovery"
+    interim = roots["interim"] / "mnist" / "00001--pso_discovery"
+    with open(reports / "general" / "overall_history.pkl", "rb") as f:
+        history = pickle.load(f)
+    log_text = (reports / "log.txt").read_text()
+    artifact_s = float(re.findall(r"artifacts written in ([0-9.]+)s", log_text)[-1])
+    g_best = {k[len("class_"):]: v["global_best_val"][-1] for k, v in history.items()}
+    trajectories = {}
+    for npz in interim.glob("particles_iid_class_*.npz"):
+        with np.load(npz) as z:
+            trajectories[npz.stem.rsplit("_", 1)[-1]] = (z["positions"], z["velocities"])
+    timing = json.loads((reports / "timing.json").read_text())
+    return {"label": label, "wall": wall, "launches": launches, "reports": reports,
+            "interim": interim, "g_best": g_best, "trajectories": trajectories,
+            "timing": timing, "artifact_s": artifact_s}
+
+
+def expected_artifacts(run: dict, classes, dim: int, n_iterations: int) -> dict:
+    """{package: files the stage writes only where the package is importable}
+    and {None: files it always writes}."""
+    r, i = run["reports"], run["interim"]
+    files = {None: [r / "timing.json", r / "configuration.yaml", r / "log.txt",
+                    r / "general" / "timing.pkl", r / "general" / "overall_history.pkl",
+                    r / "general" / "overall_history.json"],
+             "pandas": [], "matplotlib": [], "PIL": []}
+    for c in classes:
+        gen_dir, plot_dir = r / "general" / str(c), r / "training_plot" / str(c)
+        files[None].append(i / f"particles_iid_class_{c}.npz")
+        files["pandas"] += [i / f"particles_position_iid_class_{c}.pkl",
+                            i / f"particles_position_iic_class_{c}.pkl",
+                            i / f"particles_velocity_iid_class_{c}.pkl"]
+        files["matplotlib"] += [gen_dir / "pso_iter.png", gen_dir / "mean_mse.png",
+                                plot_dir / "pso_dim_last_iteration.png"]
+        files["matplotlib"] += [plot_dir / f"pso_dim_{d}.png" for d in range(dim)]
+        files["PIL"] += [plot_dir / f"pso_images_{it}.png" for it in range(1, n_iterations + 1)]
+        files["PIL"].append(plot_dir / "iid_img.gif")
+        if dim == 2:
+            files[None] += [gen_dir / "fitness_grid.pkl", gen_dir / "img_grid.pkl"]
+            files["matplotlib"] += [plot_dir / f"2d_plot_{it}.png" for it in range(n_iterations)]
+            files["matplotlib"].append(plot_dir / "2dspace_latent.gif")
+    return files
+
+
+def check_artifacts(run: dict, classes, dim: int, n_iterations: int) -> list:
+    """Every file of the contract the host can write is there, none of a
+    family whose package is missing; returns the skipped packages."""
+    import importlib.util
+
+    skipped = []
+    for package, files in expected_artifacts(run, classes, dim, n_iterations).items():
+        writable = package is None or importlib.util.find_spec(package) is not None
+        if not writable:
+            skipped.append(package)
+        wrong = [str(f) for f in files if f.exists() != writable]
+        if wrong:
+            raise AssertionError(f"pipeline {run['label']}: {len(wrong)} artifacts "
+                                 f"{'missing' if writable else 'written without ' + package}"
+                                 f", e.g. {wrong[:3]}")
+    return skipped
+
+
+def check_g_best(run: dict, n_classes: int) -> np.ndarray:
+    g = np.asarray([float(v) for v in run["g_best"].values()])
+    if len(g) != n_classes or not (np.isfinite(g).all() and (g >= EPS).all()
+                                   and (g <= 1 + EPS).all()):
+        raise AssertionError(f"pipeline {run['label']}: g_best out of [eps, 1+eps]: {g}")
+    return g
+
+
+def expect_launches(run: dict, want: dict) -> None:
+    if run["launches"] != want:
+        raise AssertionError(f"pipeline {run['label']}: launches {run['launches']}, "
+                             f"not {want}")
+
+
+def direct_runner(models, device, cfg_sets) -> tuple:
+    """The batched runner called directly on the stage's per-class draws
+    (KeyChain(seed).child(f"class_{c}")("pso"), drawn per class and stacked):
+    (per-class SwarmResults, seconds)."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import PsoConfig, load_config
+    from gan_discovery_pso_tpu_torch.core.prng import KeyChain
+    from gan_discovery_pso_tpu_torch.pso import (
+        SwarmResult, draw_uniforms, make_batched_discovery_runner, state_from_positions,
+        swarm_init)
+
+    cfg = load_config(CFG, overrides=cfg_sets)
+    hp = PsoConfig.from_config(cfg.trainer_pso)
+    classes = list(cfg.data.iid_classes)
+    keys = KeyChain(int(cfg.seed))
+    pos, vel, r1, r2 = [], [], [], []
+    for c in classes:
+        g = keys.child(f"class_{c}")("pso", device)
+        init = swarm_init(g, 1, hp.n_particles, hp.dim_space, hp.w_inertia, device)
+        a, b = draw_uniforms(g, hp.n_iterations, 1, hp.n_particles, device)
+        pos.append(init.positions[0])
+        vel.append(init.velocities[0])
+        r1.append(a[:, 0])
+        r2.append(b[:, 0])
+    init = state_from_positions(torch.stack(pos), torch.stack(vel), hp.w_inertia)
+    run = make_batched_discovery_runner(hp, eps=EPS, device=device)
+    idxs = [sorted(classes).index(c) for c in classes]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, hist, first = run(*models, idxs, init_state=init, r1=torch.stack(r1, dim=1),
+                             r2=torch.stack(r2, dim=1))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    batch = SwarmResult(final, hist, first, hp)
+    return {str(c): batch.swarm(i) for i, c in enumerate(classes)}, seconds
+
+
+def pipeline_phase(models, device, kernels, card: str, after_step=None) -> dict:
+    """The pso-discovery stage through its CLI on JAX-format checkpoints of
+    the seeded full-width models: batched fp32 (bit-equal to the runner
+    called directly), sequential (B = 1 per class), the shipped dimension 2
+    with its landscape, and bf16. Returns each run's launches.
+    `after_step(name)`, where given, is called after each step."""
+    import tempfile
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.models import Generator, GeneratorDef, dcgan_init_
+    from gan_discovery_pso_tpu_torch.pipelines import assessor_factory, load_cnn, load_gan
+    from gan_discovery_pso_tpu_torch.core import load_config
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+
+    sets100 = {"trainer_gan.z_dim": DIM, "trainer_pso.dim_space": DIM}
+    cfg = load_config(CFG, overrides=sets100)
+    data_cfg = DataConfig.from_config(cfg.data)
+    classes = list(data_cfg.iid_classes)
+    hp_iters, n_particles = int(cfg.trainer_pso.n_iterations), int(cfg.trainer_pso.n_particles)
+    evals = len(classes) * n_particles * hp_iters
+    names = [k.__name__ for k in kernels]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
+        tmp = Path(tmp_name)
+        # 1. JAX-format checkpoints, read back bit for bit
+        dirs = write_checkpoints(tmp / "upstream", 1, *models)
+        rdef = assessor_factory(cfg, data_cfg, len(classes))[0]
+        check_loaded(models[0], load_gan(dirs["gan"], device=device), "generator z=100")
+        check_loaded(models[1], load_cnn(dirs["cnn"], rdef, device=device), "ResNet-50")
+        rng = torch.Generator(device=device).manual_seed(SEED + 5)
+        gen2 = dcgan_init_(Generator(GeneratorDef(2, 1, 64), device=device), rng).eval()
+        dirs2 = {**write_checkpoints(tmp / "upstream", 2, gen=gen2), "cnn": dirs["cnn"]}
+        check_loaded(gen2, load_gan(dirs2["gan"], device=device), "generator z=2")
+        log("pipeline: JAX-format checkpoints (G(64) z=100 and z=2, ResNet-50) "
+            "written and read back bit-equal")
+        step = after_step or (lambda name: None)
+        step("checkpoints")
+        sets = [f"{k}={v}" for k, v in sets100.items()]
+
+        # 2. batched fp32 through the CLI, against the runner called directly
+        batched = run_cli(tmp, "batched", dirs, device, kernels, "--batch-classes", sets=sets)
+        step("batched CLI run")
+        expect_launches(batched, dict.fromkeys(names, hp_iters))
+        g32 = check_g_best(batched, len(classes))
+        direct, runner_s = direct_runner(models, device, sets100)
+        step("direct runner call")
+        for c, res in direct.items():
+            pos, vel = batched["trajectories"][c]
+            if not (np.array_equal(pos, res.particle_trajectories())
+                    and np.array_equal(vel, res.velocity_trajectories())
+                    and np.float32(batched["g_best"][c]) == res.g_best_val.numpy()[0]):
+                raise AssertionError(f"pipeline batched: class {c} differs from the runner")
+        skipped = check_artifacts(batched, classes, DIM, hp_iters)
+
+        # 3. sequential, one B = 1 runner per class
+        seq = run_cli(tmp, "sequential", dirs, device, kernels, sets=sets)
+        step("sequential CLI run")
+        expect_launches(seq, dict.fromkeys(names, len(classes) * hp_iters))
+        seq_diff = float(np.abs(check_g_best(seq, len(classes)) - g32).max())
+        if seq_diff > SEQ_TOL:
+            raise AssertionError(f"pipeline sequential: |g_best - batched| {seq_diff} > {SEQ_TOL}")
+        check_artifacts(seq, classes, DIM, hp_iters)
+
+        # 4. the shipped dimension, z = dim_space = 2, with the landscape
+        dim2 = run_cli(tmp, "dim2", dirs2, device, kernels, "--batch-classes",
+                       sets=["trainer_gan.z_dim=2", "trainer_pso.dim_space=2"])
+        step("dim 2 CLI run")
+        expect_launches(dim2, {"swarm_update": hp_iters,
+                               "rescale01_rows": hp_iters + len(classes)})
+        check_g_best(dim2, len(classes))
+        check_artifacts(dim2, classes, 2, hp_iters)
+        for c in classes:
+            if dim2["trajectories"][str(c)][0].shape != (hp_iters + 1, n_particles, 2):
+                raise AssertionError(f"pipeline dim2: class {c} trajectory "
+                                     f"{dim2['trajectories'][str(c)][0].shape}")
+            with open(dim2["reports"] / "general" / str(c) / "fitness_grid.pkl", "rb") as f:
+                grid = pickle.load(f)
+            if grid.shape != (LANDSCAPE, LANDSCAPE) or not (
+                    np.isfinite(grid).all() and (grid >= EPS).all() and (grid <= 1 + EPS).all()):
+                raise AssertionError(f"pipeline dim2: class {c} fitness_grid {grid.shape} "
+                                     f"in [{grid.min()}, {grid.max()}]")
+
+        # 5. bf16 on step 2's setup: the gate
+        bf16 = run_cli(tmp, "bf16", dirs, device, kernels, "--batch-classes", "--fast-math", sets=sets)
+        step("bf16 CLI run")
+        expect_launches(bf16, dict.fromkeys(names, hp_iters))
+        gate = float(np.abs(check_g_best(bf16, len(classes)) - g32).max())
+        if gate > GATE:
+            raise AssertionError(f"pipeline bf16 gate: max |g32 - g16| = {gate} > {GATE}")
+
+    log(f"pipeline: batched CLI run bit-equal to the runner (trajectories, velocities, "
+        f"g_best of {len(classes)} classes); sequential within {seq_diff:.3e} of batched "
+        f"(<= {SEQ_TOL}); bf16 gate {gate:.3e} (<= {GATE}); dim 2 landscapes "
+        f"[{LANDSCAPE},{LANDSCAPE}] in [eps, 1+eps]")
+    log(f"pipeline: host packages missing, families not written: {skipped or 'none'}")
+    log(f"pipeline runner alone (batched fp32, direct call): {runner_s:.6f} s, "
+        f"{evals / runner_s:.0f} evals/s ({card})")
+    for run in (batched, seq, dim2, bf16):
+        t = run["timing"]
+        runner_in_stage = t.get("training_time_all_classes") or max(
+            v for k, v in t.items() if k.startswith("training_time_class_"))
+        log(f"pipeline {run['label']}: stage {run['wall']:.6f} s (cli.main), runner in stage "
+            f"{runner_in_stage:.6f} s, {evals / runner_in_stage:.0f} evals/s, artifacts "
+            f"{run['artifact_s']:.6f} s; launches {run['launches']} ({card})")
+        out[run["label"]] = run["launches"]
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -481,6 +821,7 @@ def main() -> int:
         raise AssertionError(f"bf16 gate: max |g32 - g16| = {gate} > {GATE}")
     log(f"fp32 runs identical; bf16 gate max |g32 - g16| = {gate:.3e} <= {GATE}")
     log(f"evals/s warm: fp32 {evals / s32:.0f}, bf16 {evals / s16:.0f} ({card})")
+    pipeline_launches = pipeline_phase(models, device, KERNELS, card)
     prof = profile_main_path(models, device, KERNELS)
     log("profile fp32 main path: " + json.dumps(prof))
     log("profile bf16 main path: "
@@ -494,6 +835,8 @@ def main() -> int:
 
     for rec in records:
         rec["launches"] = launches32[rec["name"]]
+        rec["pipeline_launches"] = {run: counts[rec["name"]]
+                                    for run, counts in pipeline_launches.items()}
         rec["device_us_per_launch"] = prof.get("port_kernels_us_per_launch", {}).get(
             rec["name"], "not measured")
     print(json.dumps({"kernels": records}), flush=True)

@@ -3,15 +3,21 @@
 The JAX package beside this one is the reference; this package imports
 neither it nor JAX. Module paths mirror the JAX package's:
 
-- `core/`: config (`PsoConfig`), the device policy (CUDA unless the caller
-  names another device);
+- `core/`: config (`PsoConfig`, `DataConfig`), the device policy (CUDA
+  unless the caller names another device), named random streams
+  (`prng.py`), run dirs, logging, and flax-msgpack checkpoints read and
+  written without flax (`checkpoint.py`);
 - `ops/`: convs, eval BN, pools, the plain rescale, the precision modes, and
   `ops/kernels/` — the hand-written CUDA kernels (`csrc/*.cu`) that replace
   the JAX package's two Pallas TPU kernels, each beside its plain version;
 - `models/`: the DCGAN generator and the ResNet assessors as `nn.Module`s;
-- `pso/`: fitness, swarm, and the batched discovery runner (the main path);
+- `pso/`: fitness, swarm, the batched discovery runner (the main path),
+  and the particle artifacts (`io.py`);
 - `compat/weights.py`: JAX parameter trees and reference checkpoints into
-  the port's state dicts.
+  the port's state dicts, and back;
+- `pipelines/`, `analysis/reporting.py`, `cli/`: the `pso-discovery` stage,
+  its report writers and its command line
+  (`python -m gan_discovery_pso_tpu_torch.cli pso-discovery`).
 """
 
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig

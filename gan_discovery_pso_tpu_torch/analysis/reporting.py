@@ -1,0 +1,226 @@
+"""Report artifacts of the discovery stage: convergence plots, particle
+scatters, the 2-D fitness landscape, GIFs and image grids (counterpart of
+`gan_discovery_pso_tpu/analysis/reporting.py`: `_savefig` and its switches
+:22-79, `plot_convergence` :83, `plot_particle_dimensions` :95,
+`plot_fitness_landscape_2d` :116, `make_gif` :142, `plot_mean_mse` :418,
+`plot_particles_last_iteration` :431, `grid_canvas` :470,
+`save_image_grid` :491).
+
+matplotlib and PIL are imported inside the writers, so the package imports
+on a host that lacks them; the stage asks `host_has` before it calls a
+writer whose package is missing.
+
+Two environment switches, read at import as in the JAX package, keep a test
+suite's hundreds of figures cheap: GDPT_PLOT_DPI_SCALE scales every raster's
+dpi, and GDPT_FAST_FIGURES=1 writes a 1x1 PNG at the contracted path for
+most figures (the first of each file-name pattern, digits normalised, and a
+1-in-8 sample by path hash still render).
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import re
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+_DPI_SCALE = float(os.environ.get("GDPT_PLOT_DPI_SCALE", "1.0"))
+_FAST_FIGURES = os.environ.get("GDPT_FAST_FIGURES", "") == "1"
+_STUB_PNG: bytes | None = None
+_RENDERED_PATTERNS: set[str] = set()
+
+
+def host_has(package: str) -> bool:
+    """Whether `package` (pandas, matplotlib, PIL) is importable here."""
+    return importlib.util.find_spec(package) is not None
+
+
+def _plt():
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def _dpi(d: int) -> int:
+    return max(25, int(d * _DPI_SCALE))
+
+
+def _render_anyway(path) -> bool:
+    p = Path(path)
+    key = f"{p.parent.name}/{p.name}"
+    pattern = re.sub(r"\d+", "N", key)
+    if pattern not in _RENDERED_PATTERNS:
+        _RENDERED_PATTERNS.add(pattern)
+        return True
+    return zlib.crc32(key.encode()) % 8 == 0
+
+
+def _savefig(fig, path, dpi: int, **kw) -> None:
+    """The one savefig of every figure writer here."""
+    global _STUB_PNG
+    if _FAST_FIGURES and not _render_anyway(path):
+        if _STUB_PNG is None:
+            import io
+
+            from PIL import Image
+
+            buf = io.BytesIO()
+            Image.new("L", (1, 1), 128).save(buf, format="PNG")
+            _STUB_PNG = buf.getvalue()
+        Path(path).write_bytes(_STUB_PNG)
+        return
+    fig.savefig(path, dpi=_dpi(dpi), format="png", **kw)
+
+
+def plot_convergence(g_best_series, out_path, title="PSO convergence"):
+    """Global-best trajectory (reference util_report.py:23-29)."""
+    plt = _plt()
+    fig, ax = plt.subplots()
+    ax.plot(np.asarray(g_best_series))
+    ax.set_xlabel("iteration")
+    ax.set_ylabel("global best fitness")
+    ax.set_title(title)
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_particle_dimensions(trajectories, out_dir, prefix="dim"):
+    """Per-latent-dimension particle scatter over iterations
+    (reference util_report.py:36-73). trajectories: [iters+1, N, d]."""
+    plt = _plt()
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tr = np.asarray(trajectories)
+    iters, n, d = tr.shape
+    paths = []
+    for dim in range(d):
+        fig, ax = plt.subplots()
+        for p in range(n):
+            ax.plot(np.arange(iters), tr[:, p, dim], alpha=0.4, lw=0.8)
+        ax.set_xlabel("iteration")
+        ax.set_ylabel(f"position dim {dim}")
+        path = out_dir / f"{prefix}_{dim}.png"
+        _savefig(fig, path, 150)
+        plt.close(fig)
+        paths.append(path)
+    return paths
+
+
+def plot_fitness_landscape_2d(
+    fitness_fn, center, out_path, positions=None, span=3.0, resolution=100
+):
+    """2-D fitness contour around `center` with particles overlaid
+    (reference plot2d, util_report.py:82-141): one fitness_fn call on the
+    whole [res², 2] mesh."""
+    plt = _plt()
+    center = np.asarray(center)
+    xs = np.linspace(center[0] - span, center[0] + span, resolution)
+    ys = np.linspace(center[1] - span, center[1] + span, resolution)
+    gx, gy = np.meshgrid(xs, ys)
+    mesh = np.stack([gx.ravel(), gy.ravel()], axis=1).astype(np.float32)
+    vals = np.asarray(fitness_fn(mesh)).reshape(resolution, resolution)
+
+    fig, ax = plt.subplots()
+    cs = ax.contourf(gx, gy, vals, levels=30, cmap="viridis")
+    fig.colorbar(cs, ax=ax, label="fitness")
+    if positions is not None:
+        positions = np.asarray(positions)
+        ax.scatter(positions[:, 0], positions[:, 1], c="red", s=8, label="particles")
+        ax.legend()
+    ax.scatter([center[0]], [center[1]], marker="*", c="white", s=120)
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def make_gif(frame_paths, out_path, duration_ms: int = 200):
+    """Frames → GIF (reference util_report.py:75-79). Frames are read and
+    closed up front: hundreds of open PIL handles would exhaust the fd
+    limit."""
+    from PIL import Image
+
+    frames = []
+    for p in frame_paths:
+        with Image.open(p) as im:
+            frames.append(im.copy())
+    if not frames:
+        raise ValueError("no frames")
+    frames[0].save(
+        out_path, save_all=True, append_images=frames[1:], duration=duration_ms, loop=0
+    )
+    return Path(out_path)
+
+
+def plot_mean_mse(series, out_path):
+    """Mean pairwise-distance trajectory, the `mean_mse` branch of the
+    reference's plot_training (util_report.py:219-227)."""
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(8, 6))
+    ax.plot(np.asarray(series), label="mean_mse", color="r")
+    ax.set_title("mse between particles position")
+    ax.set_xlabel("Iterations")
+    ax.set_ylabel("mean_mse")
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_particles_last_iteration(final_positions, out_path):
+    """Final particle position per latent dimension (reference
+    plot_features_last_iteration, util_report.py:36-51)."""
+    plt = _plt()
+    pos = np.asarray(final_positions)  # [N, d]
+    n, d = pos.shape
+    fig, ax = plt.subplots(figsize=(8, 6))
+    cmap = plt.get_cmap("hsv", d)
+    for dim in range(d):
+        ax.scatter(pos[:, dim], np.full(n, dim), s=10.0, marker="o",
+                   edgecolors="none", color=cmap(dim))
+    ax.xaxis.grid(True)
+    ax.set_xlabel("Particles Position")
+    ax.set_ylabel("Dimensions")
+    ax.set_title("Particle Position for each dimension at last PSO iteration")
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def grid_canvas(images, ncols: int = 8, drange=(0, 1), padding: int = 2):
+    """torchvision.utils.make_grid-equivalent canvas: [N, C, H, W] →
+    [C, H', W'] float in [0, 1], black padding between cells."""
+    imgs = np.asarray(images, np.float32)
+    lo, hi = drange
+    imgs = np.clip((imgs - lo) / (hi - lo), 0.0, 1.0)
+    n, c, h, w = imgs.shape
+    ncols = min(ncols, n)
+    nrows = -(-n // ncols)
+    canvas = np.zeros(
+        (c, nrows * (h + padding) + padding, ncols * (w + padding) + padding),
+        np.float32,
+    )
+    for i in range(n):
+        r, cc = divmod(i, ncols)
+        y = r * (h + padding) + padding
+        x = cc * (w + padding) + padding
+        canvas[:, y : y + h, x : x + w] = imgs[i]
+    return canvas
+
+
+def save_image_grid(images, out_path, ncols: int = 8, drange=(0, 1), padding: int = 2):
+    """Grid PNG writer (PIL, no matplotlib) for the per-iteration
+    `pso_images_{i}.png` grids (reference src/pso/util_pso.py:127-133).
+    images: [N, C, H, W]."""
+    from PIL import Image
+
+    canvas = grid_canvas(images, ncols=ncols, drange=drange, padding=padding)
+    arr = (canvas * 255.0 + 0.5).astype(np.uint8).transpose(1, 2, 0)
+    img = Image.fromarray(arr.squeeze(-1) if arr.shape[-1] == 1 else arr)
+    img.save(out_path, format="PNG")
+    return Path(out_path)

@@ -1,0 +1,4 @@
+from gan_discovery_pso_tpu_torch.cli.main import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,147 @@
+"""Command-line entry point of the port (counterpart of
+`gan_discovery_pso_tpu/cli/main.py`: `_parse_set`, `_add_common`, `_TINY`,
+`_ctx` :33-86, `_load_gan`/`_load_cnn` :271-290, the `pso-discovery`
+branch :371-378):
+
+    python -m gan_discovery_pso_tpu_torch.cli pso-discovery \\
+        --cfg configs/dcgan_mnist.yaml --path-gan DIR --path-cnn DIR \\
+        [--batch-classes] [--fast-math] [--tiny] [--set key=value ...] \\
+        [--device cuda|cpu|cuda:N]
+
+`--path-gan` and `--path-cnn` are the models dirs of the JAX package's (or
+a later port's) `dcgan` and `cnn-multipatient` runs: the port reads their
+flax-msgpack checkpoints. The stage runs on the card; `--device cpu` is the
+port's counterpart of `JAX_PLATFORMS=cpu`. `--fast-math` runs the forwards
+in bf16. Every other stage of the JAX CLI exits non-zero, naming the ROADMAP
+item that will port it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+# stages of the JAX package's CLI that the port does not run yet, with the
+# ROADMAP item of each
+NOT_PORTED = {
+    "cae": "A11", "classifiers": "A11", "dcgan": "A9", "cnn": "A10",
+    "cnn-multipatient": "A10", "inverter": "A12", "iid-extract": "A12",
+    "ood-extract": "A12", "pso-inverter": "A12", "regularize-inverter": "A12",
+    "regularize-inverter-statistics": "A12", "vqvae": "A13", "pixelcnn-prior": "A13",
+    "pso-analysis": "A15", "pso-analysis-clustering": "A15",
+    "pso-analysis-distance": "A15", "pso-inverter-analysis": "A15",
+    "claro-preprocess": "A14", "sweep": "A17", "export-model": "A17",
+    "convert-torch": "A17", "export-torch": "A17",
+}
+
+
+def _parse_set(values):
+    """--set a.b.c=value (int/float/bool/list coerced via yaml)."""
+    import yaml
+
+    out = {}
+    for item in values or []:
+        k, _, v = item.partition("=")
+        out[k] = yaml.safe_load(v)
+    return out
+
+
+def _add_common(p):
+    p.add_argument("--cfg", default="configs/dcgan_mnist.yaml")
+    # action="extend": repeated `--set a=1 --set b=2` accumulate
+    p.add_argument("--set", nargs="*", action="extend", default=[],
+                   help="dotted config overrides (repeatable)")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny-config smoke run (small models and swarms)")
+    p.add_argument("--limit", type=int, default=None,
+                   help="cap images per dataset (not ported: ROADMAP A14)")
+    p.add_argument("--fast-math", action="store_true",
+                   help="run the model forwards in bf16 (the swarm math stays "
+                        "fp32) instead of the fp32-parity default")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the stage (default: the CUDA card; "
+                        "'cpu' runs the plain PyTorch path)")
+
+
+_TINY = {
+    "model_gan.network.units_gen": 8,
+    "model_gan.network.units_disc": 8,
+    "trainer_gan.z_dim": 8,
+    "trainer_pso.n_iterations": 4,
+    "trainer_pso.n_particles": 8,
+    "trainer_pso.dim_space": 8,
+    "model_inverter.latent_space": 8,
+    "model_ae.latent_space": 6,
+    "model.latent_space.embedding_dim": 8,
+    "model.latent_space.num_embedding": 64,
+}
+
+
+def _ctx(args, module):
+    from gan_discovery_pso_tpu_torch.pipelines import StageContext
+
+    overrides = _parse_set(args.set)
+    if args.tiny:
+        overrides = {**_TINY, **overrides}
+    return StageContext.create(args.cfg, module, overrides=overrides, device=args.device)
+
+
+def _load_gan(args, ctx):
+    from gan_discovery_pso_tpu_torch.pipelines import load_gan
+
+    if not args.path_gan:
+        sys.exit("--path-gan required (models dir of a dcgan run)")
+    return load_gan(args.path_gan, device=ctx.device)
+
+
+def _load_cnn(args, ctx):
+    from gan_discovery_pso_tpu_torch.pipelines import assessor_factory, load_cnn
+
+    if not args.path_cnn:
+        sys.exit("--path-cnn required (models dir of a cnn-multipatient run)")
+    iid = tuple(ctx.data_cfg.iid_classes)
+    rdef, _init, _apply = assessor_factory(ctx.cfg, ctx.data_cfg, len(iid))
+    return load_cnn(args.path_cnn, rdef, device=ctx.device), rdef
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in NOT_PORTED:
+        print(f"{argv[0]}: not yet ported to the PyTorch package "
+              f"(ROADMAP {NOT_PORTED[argv[0]]}); run it with "
+              "`python -m gan_discovery_pso_tpu.cli`", file=sys.stderr)
+        return 2
+    parser = argparse.ArgumentParser(prog="gan-discovery-pso-tpu-torch")
+    sub = parser.add_subparsers(dest="stage", required=True)
+    p = sub.add_parser("pso-discovery")
+    _add_common(p)
+    p.add_argument("--path-gan", default=None, help="dcgan stage model dir")
+    p.add_argument("--path-cnn", default=None, help="cnn stage model dir")
+    p.add_argument("--batch-classes", action="store_true",
+                   help="advance all class swarms in one batch")
+    p.add_argument("--shard-swarm", type=int, default=None, metavar="N",
+                   help="shard particles over N devices (not ported: ROADMAP A16)")
+    args = parser.parse_args(argv)
+    for flag, given, item in (("--shard-swarm", args.shard_swarm, "A16"),
+                              ("--limit", args.limit is not None, "A14")):
+        if given:
+            print(f"{flag}: not yet ported to the PyTorch package (ROADMAP {item})",
+                  file=sys.stderr)
+            return 2
+
+    from gan_discovery_pso_tpu_torch import pipelines as P
+
+    ctx = _ctx(args, args.stage.replace("-", "_"))
+    with ctx.tee():
+        gen = _load_gan(args, ctx)
+        cnn, rdef = _load_cnn(args, ctx)
+        P.run_pso_discovery(ctx, gen, cnn, rdef, batch_classes=args.batch_classes,
+                            fast_math_dtype=torch.bfloat16 if args.fast_math else None)
+    print(f"[{args.stage}] done → {ctx.run.reports_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

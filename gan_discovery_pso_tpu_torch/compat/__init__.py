@@ -1,13 +1,17 @@
 from gan_discovery_pso_tpu_torch.compat.weights import (
     generator_state_dict,
+    generator_tree,
     load_reference_checkpoint,
     resnet_state_dict,
+    resnet_tree,
     to_tensors,
 )
 
 __all__ = [
     "generator_state_dict",
+    "generator_tree",
     "load_reference_checkpoint",
     "resnet_state_dict",
+    "resnet_tree",
     "to_tensors",
 ]

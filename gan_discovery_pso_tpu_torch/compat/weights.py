@@ -14,6 +14,13 @@ reference's state-dict names, which the port's modules carry:
     to_tensors(...) → {name: torch.Tensor}, ready for
         module.load_state_dict(..., strict=True)
 
+and back (counterpart of `compat/torch_import.py:54,121`):
+
+    generator_tree(state_dict) / resnet_tree(state_dict)
+        → (params, state) numpy trees in the JAX layout, BN stats as
+          `{mean, var}` dicts and every dict's keys sorted, the form a JAX
+          run's checkpoint holds (`core/checkpoint.py` writes it)
+
 `load_reference_checkpoint` reads the reference's `.tar`
 (`{'epoch', 'model_state_dict', 'loss'}`) and bare `.pt` state dicts.
 """
@@ -84,6 +91,69 @@ def resnet_state_dict(params: dict, state: dict) -> dict:
     sd["fc.weight"] = _np(params["fc"]["w"])
     sd["fc.bias"] = _np(params["fc"]["b"])
     return sd
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _conv_tree(sd: dict, prefix: str) -> dict:
+    p = {"w": _host(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        p["b"] = _host(sd[f"{prefix}.bias"])
+    return p
+
+
+def _bn_tree(sd: dict, prefix: str) -> tuple[dict, dict]:
+    return ({"bias": _host(sd[f"{prefix}.bias"]), "scale": _host(sd[f"{prefix}.weight"])},
+            {"mean": _host(sd[f"{prefix}.running_mean"]),
+             "var": _host(sd[f"{prefix}.running_var"])})
+
+
+def _sorted(node):
+    """Dict keys in sorted order, as a tree that passed through jax.jit has
+    them (a JAX run's checkpoints)."""
+    if isinstance(node, dict):
+        return {k: _sorted(node[k]) for k in sorted(node)}
+    if isinstance(node, list):
+        return [_sorted(v) for v in node]
+    return node
+
+
+def generator_tree(sd: dict) -> tuple[dict, dict]:
+    """`Generator` state dict → the JAX package's generator (params, state)."""
+    bn1, s1 = _bn_tree(sd, "gen.0.1")
+    bn2, s2 = _bn_tree(sd, "gen.1.1")
+    params = {"convt1": _conv_tree(sd, "gen.0.0"), "bn1": bn1,
+              "convt2": _conv_tree(sd, "gen.1.0"), "bn2": bn2,
+              "convt3": _conv_tree(sd, "gen.2")}
+    return _sorted(params), _sorted({"bn1": s1, "bn2": s2})
+
+
+def resnet_tree(sd: dict) -> tuple[dict, dict]:
+    """`ResNet` state dict → the JAX package's ResNet (params, state)."""
+    params, state = {"conv1": _conv_tree(sd, "conv1")}, {}
+    params["bn1"], state["bn1"] = _bn_tree(sd, "bn1")
+    li = 1
+    while f"layer{li}.0.conv1.weight" in sd:
+        blocks, bstates = [], []
+        bi = 0
+        while f"layer{li}.{bi}.conv1.weight" in sd:
+            pfx = f"layer{li}.{bi}"
+            bp, bs = {}, {}
+            for ci in (1, 2, 3):
+                bp[f"conv{ci}"] = _conv_tree(sd, f"{pfx}.conv{ci}")
+                bp[f"bn{ci}"], bs[f"bn{ci}"] = _bn_tree(sd, f"{pfx}.bn{ci}")
+            if f"{pfx}.identity_downsample.0.weight" in sd:
+                bp["ds_conv"] = _conv_tree(sd, f"{pfx}.identity_downsample.0")
+                bp["ds_bn"], bs["ds_bn"] = _bn_tree(sd, f"{pfx}.identity_downsample.1")
+            blocks.append(bp)
+            bstates.append(bs)
+            bi += 1
+        params[f"layer{li}"], state[f"layer{li}"] = blocks, bstates
+        li += 1
+    params["fc"] = {"b": _host(sd["fc.bias"]), "w": _host(sd["fc.weight"])}
+    return _sorted(params), _sorted(state)
 
 
 def to_tensors(sd: dict, device=None) -> dict:

@@ -9,8 +9,9 @@ the compute path consumes get typed frozen dataclasses so they hash and
 compare by value.
 
 PyTorch port: a copy of `gan_discovery_pso_tpu/core/config.py` reduced to
-what the discovery path reads (`Config`, `load_config`, `cfg_default`,
-`PsoConfig`), so the port never imports the JAX package.
+what the discovery stage reads (`Config`, `load_config`, `cfg_default`,
+`PsoConfig`, `DataConfig` :198-232), so the port never imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -166,4 +167,42 @@ class PsoConfig:
                 if "early_stopping_pso" in block
                 else block.get("early_stopping", False)
             ),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Data block (reference configs/dcgan_mnist.yaml:10-31)."""
+
+    image_size: int = 28
+    channel: int = 1
+    drange_net: tuple = (-1, 1)
+    dataset: str = "mnist"
+    iid_classes: tuple = (0, 2, 3, 4, 6, 7, 8, 9)
+    ood_classes: tuple = (1, 5)
+    data_dir: str = "./data/data_raw"
+    interim_dir: str = "./data/interim"
+    model_dir: str = "./models"
+    reports_dir: str = "./reports"
+
+    @classmethod
+    def from_config(cls, block: Mapping[str, Any]) -> "DataConfig":
+        def as_classes(v):
+            # claro_preprocess.yaml uses dataset-name strings here
+            # (configs/claro_preprocess.yaml:14-15); keep them as 1-tuples.
+            if isinstance(v, str):
+                return (v,)
+            return tuple(v) if v is not None else ()
+
+        return cls(
+            image_size=int(block["image_size"]),
+            channel=int(block["channel"]),
+            drange_net=tuple(block.get("drange_net") or (-1, 1)),
+            dataset=str(block["dataset"]),
+            iid_classes=as_classes(block.get("iid_classes")),
+            ood_classes=as_classes(block.get("ood_classes")),
+            data_dir=str(block.get("data_dir", "./data/data_raw")),
+            interim_dir=str(block.get("interim_dir", "./data/interim")),
+            model_dir=str(block.get("model_dir", "./models")),
+            reports_dir=str(block.get("reports_dir", "./reports")),
         )

@@ -37,10 +37,15 @@ class ResNetDef(NamedTuple):
     model_name: str = "ResNet50"
     image_channels: int = 1
     n_class: int = 2
+    iid_classes: tuple = ()
 
     @property
     def layers(self) -> tuple:
         return _LAYERS[self.model_name]
+
+    def class_to_idx(self) -> dict:
+        """Sorted IiD class labels → logit columns (util_cnn.py:90-91)."""
+        return {c: i for i, c in enumerate(sorted(self.iid_classes))}
 
 
 def _conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:

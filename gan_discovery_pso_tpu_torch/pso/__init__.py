@@ -4,10 +4,18 @@ from gan_discovery_pso_tpu_torch.pso.fitness import (
     apply_discovery_fitness,
     assessor_posterior,
     fitness_from_posterior,
+    make_discovery_fitness_dynamic,
+)
+from gan_discovery_pso_tpu_torch.pso.io import (
+    load_final_particle_positions,
+    load_particle_trajectories,
+    save_particle_histories,
 )
 from gan_discovery_pso_tpu_torch.pso.runner import (
     make_batched_discovery_runner,
     make_discovery_runner,
+    resolve_fitness_chunk,
+    select_program,
 )
 from gan_discovery_pso_tpu_torch.pso.swarm import (
     PsoHistory,
@@ -17,6 +25,7 @@ from gan_discovery_pso_tpu_torch.pso.swarm import (
     last_iteration,
     mean_pairwise_distance,
     optimize,
+    optimize_resumable,
     pso_iteration,
     state_from_positions,
     swarm_init,
@@ -33,11 +42,18 @@ __all__ = [
     "draw_uniforms",
     "fitness_from_posterior",
     "last_iteration",
+    "load_final_particle_positions",
+    "load_particle_trajectories",
     "make_batched_discovery_runner",
+    "make_discovery_fitness_dynamic",
     "make_discovery_runner",
     "mean_pairwise_distance",
     "optimize",
+    "optimize_resumable",
     "pso_iteration",
+    "resolve_fitness_chunk",
+    "save_particle_histories",
+    "select_program",
     "state_from_positions",
     "swarm_init",
 ]

@@ -1,6 +1,6 @@
 """Discovery fitness: particle positions → objective, batched over every
 particle of every swarm (counterpart of
-`gan_discovery_pso_tpu/pso/fitness.py:35-96`).
+`gan_discovery_pso_tpu/pso/fitness.py:35-96,169-196`).
 
 Reference src/pso/util_discovery.py:33-82:
 - positions [M, d] reshape to latents [M, d, 1, 1];
@@ -13,10 +13,14 @@ Reference src/pso/util_discovery.py:33-82:
 
 from __future__ import annotations
 
+import contextlib
+from typing import Callable
+
 import torch
 from torch import nn
 
 from gan_discovery_pso_tpu_torch.ops.kernels import rescale01_per_sample
+from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
 
 OPTIMIZE_IN = "optimize_in_training"
 OPTIMIZE_OUT = "optimize_out_training"
@@ -52,17 +56,48 @@ def apply_discovery_fitness(
     threshold: float = 0.0,
     eps: float = 0.1,
     dtype: torch.dtype | None = None,
-) -> torch.Tensor:
+    return_images: bool = False,
+):
     """positions [M, d] → fitness [M] (fp32). `dtype` (bf16 mode) casts the
     latents; the caller casts the models (`ops.precision.cast_model`). The
     images come out fp32 either way (`ops/conv.py`); in bf16 mode the rescale
     kernel casts them to bf16, the cast the assessor's first conv would make
-    (the JAX package casts there)."""
+    (the JAX package casts there). `return_images` gives
+    (fitness, (rescaled images, generator images)), each [M, C, H, W]."""
     z = positions.reshape(positions.shape[0], positions.shape[1], 1, 1)
     if dtype is not None:
         z = z.to(dtype)
     img = gen_model(z)
     img01 = rescale01_per_sample(img.float(), out_dtype=dtype or img.dtype)
     logits = assessor(img01)
-    return fitness_from_posterior(assessor_posterior(logits, class_idx),
+    vals = fitness_from_posterior(assessor_posterior(logits, class_idx),
                                   control, threshold, eps)
+    if return_images:
+        return vals, (img01, img)
+    return vals
+
+
+def make_discovery_fitness_dynamic(
+    gen_model: nn.Module,
+    assessor: nn.Module,
+    control: str = OPTIMIZE_OUT,
+    threshold: float = 0.0,
+    eps: float = 0.1,
+    dtype: torch.dtype | None = None,
+) -> Callable:
+    """Discovery fitness with the class index as an argument:
+    fitness(positions [M, d], class_idx, return_images=False) → [M] on the
+    models' device. positions may be a numpy array. fp32 runs under
+    `fp32_parity`; dtype=torch.bfloat16 casts copies of the models once."""
+    gen, cnn = cast_model(gen_model, dtype), cast_model(assessor, dtype)
+    device = next(gen.parameters()).device
+
+    def fitness(positions, class_idx, return_images: bool = False):
+        pos = torch.as_tensor(positions, dtype=torch.float32, device=device)
+        precision = fp32_parity() if dtype is None else contextlib.nullcontext()
+        with precision, torch.inference_mode():
+            return apply_discovery_fitness(pos, gen, cnn, class_idx, control=control,
+                                           threshold=threshold, eps=eps, dtype=dtype,
+                                           return_images=return_images)
+
+    return fitness

@@ -1,5 +1,5 @@
 """Discovery runners: every class's swarm in one batch (counterpart of
-`gan_discovery_pso_tpu/pso/runner.py:71-174`).
+`gan_discovery_pso_tpu/pso/runner.py:26-174`).
 
 The JAX package vmaps `optimize` over a class axis (and an optional `stack`
 axis of independent sweeps) inside one jitted program. Here both axes fold
@@ -12,6 +12,13 @@ Models are arguments of `run`, so one runner serves every set of weights.
 `dtype=torch.bfloat16` runs the forwards on bf16 copies of the models (the
 swarm math stays fp32); the default runs them in fp32 under
 `ops.precision.fp32_parity`, the JAX package's `Precision.HIGHEST`.
+
+`resolve_fitness_chunk` keeps the JAX package's rule for the
+`trainer_pso.fitness_chunk` key, 'auto' included. The rule was measured on
+a TPU (HBM streaming); on the card it only sets how many particles one
+forward takes, and chunked fitness gives the values of the whole one.
+`select_program` checks the `trainer_pso.program` key, which chooses
+nothing here.
 """
 
 from __future__ import annotations
@@ -31,6 +38,36 @@ from gan_discovery_pso_tpu_torch.pso.swarm import (
     optimize,
     swarm_init,
 )
+
+
+def resolve_fitness_chunk(value, n_particles: int) -> int | None:
+    """The `trainer_pso.fitness_chunk` key as a chunk size (JAX `:26`).
+
+    'auto' or an absent key: 64 for swarms of ≥ 256 particles (when 64
+    divides them), else none. An int: that chunk (validated); 0/false/null:
+    none. The chunk only sets how many particles one forward takes: the
+    values are those of the unchunked run."""
+    if value in (None, "auto"):
+        return 64 if n_particles >= 256 and n_particles % 64 == 0 else None
+    if not value:
+        return None
+    v = int(value)
+    if v <= 0 or n_particles % v:
+        raise ValueError(
+            f"fitness_chunk={v} must be positive and divide "
+            f"n_particles={n_particles}")
+    return v if v < n_particles else None
+
+
+def select_program(program: str) -> None:
+    """Check the `trainer_pso.program` key (JAX `:48`): auto, chunked or
+    monolithic, else ValueError. The JAX package reads it to compile the
+    sweep as 10-iteration programs or as one, for the TPU's compile times.
+    The port compiles nothing, so every value runs the one loop of
+    `make_batched_discovery_runner`."""
+    if program not in ("auto", "chunked", "monolithic"):
+        raise ValueError(f"trainer_pso.program={program!r} — expected "
+                         "auto | chunked | monolithic")
 
 
 def _on_device(model: nn.Module, device: torch.device, name: str):

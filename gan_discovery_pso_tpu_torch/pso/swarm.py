@@ -22,6 +22,8 @@ Draws: torch cannot reproduce JAX's threefry streams, so the initial
 positions and velocities and each iteration's r1/r2 are inputs of
 `optimize`; `swarm_init` and `draw_uniforms` make them from a
 `torch.Generator`, and parity tests inject the draws JAX made.
+`optimize_resumable` (JAX `:298-372`) indexes the injected r1/r2 by the
+state's own `iteration`, so a resumed run replays the single-shot one.
 
 The loop has no host synchronisation: early stop is a mask, not a break.
 """
@@ -157,6 +159,8 @@ def optimize(
     Returns (final_state, history, init_state)."""
     n_iters = hp.n_iterations if n_iterations is None else n_iterations
     state = init_state
+    if n_iters == 0:
+        return state, _empty_history(state), init_state
     records = []
     for it in range(n_iters):
         fitness = fitness_fn(state.positions)
@@ -174,14 +178,86 @@ def optimize(
     return state, history, init_state
 
 
-def last_iteration(history: PsoHistory, done=None) -> list[int]:
+def _empty_history(state: SwarmState) -> PsoHistory:
+    """A 0-iteration history of the state's swarms."""
+    b, n, d = state.positions.shape
+    kw = {"device": state.positions.device}
+    return PsoHistory(torch.empty((b, 0, n, d), **kw), torch.empty((b, 0, n, d), **kw),
+                      torch.empty((b, 0, n), **kw), torch.empty((b, 0), **kw),
+                      torch.empty((b, 0), **kw), torch.empty((b, 0), **kw),
+                      torch.empty((b, 0), dtype=torch.bool, **kw))
+
+
+def _host_bools(x, n: int) -> np.ndarray:
+    if x is None:
+        return np.zeros(n, bool)
+    return np.asarray(x.cpu() if torch.is_tensor(x) else x, bool).reshape(n)
+
+
+def optimize_resumable(
+    fitness_fn: Callable[[torch.Tensor], torch.Tensor],
+    hp: PsoConfig,
+    init_state: SwarmState,
+    r1: torch.Tensor,
+    r2: torch.Tensor,
+    checkpointer=None,
+    checkpoint_every: int = 10,
+    tag: str = "swarm",
+) -> tuple[SwarmState, PsoHistory, SwarmState]:
+    """Preemption-safe `optimize`: runs in chunks of `checkpoint_every`
+    iterations and saves the whole swarm state through `checkpointer`
+    (`core.checkpoint.Checkpointer`) after each. With a saved
+    `checkpoint_{tag}.msgpack` it resumes from it, not from `init_state`.
+
+    r1, r2 are the single-shot run's draws, [n_iterations, B, N]; a chunk
+    takes the rows from the state's own `iteration` on (one less than the
+    iteration it starts with), so the resumed trajectory is the single-shot
+    one. Returns (final_state, history, init_state) like `optimize`, the
+    history covering the iterations run in this call (0 rows when resuming a
+    finished run)."""
+    device = init_state.positions.device
+    state = init_state
+    if checkpointer is not None:
+        saved = checkpointer.try_load(f"checkpoint_{tag}.msgpack")
+        if saved is not None:
+            # field-name keyed, never dict-order dependent
+            state = SwarmState(**{f: torch.as_tensor(saved["state"][f]).to(device)
+                                  for f in SwarmState._fields})
+    start = state
+    parts = []
+    done_iters = int(state.iteration.max()) - 1
+    while done_iters < hp.n_iterations and not bool(state.done.all()):
+        chunk = min(checkpoint_every, hp.n_iterations - done_iters)
+        rows = slice(done_iters, done_iters + chunk)
+        state, hist, _ = optimize(fitness_fn, hp, state, r1[rows], r2[rows], n_iterations=chunk)
+        parts.append(hist)
+        done_iters += chunk
+        if checkpointer is not None:
+            checkpointer.save_every_epoch(tag, done_iters, state._asdict())
+    if not parts:
+        return state, _empty_history(state), start
+    history = PsoHistory(*(torch.cat(field, dim=1) for field in zip(*parts)))
+    return state, history, start
+
+
+def last_iteration(history: PsoHistory, done=None, state_iteration=None) -> list[int]:
     """The reference's returned `i`, per swarm: n_iterations + 1 on a natural
     exit, else the iteration whose tolerance check broke the loop
     (util_pso.py:174-189). Pass the final state's `done` to tell apart an
-    early stop that latched on the last scheduled iteration."""
+    early stop that latched on the last scheduled iteration.
+
+    A 0-row history (`optimize_resumable` resuming a finished run) carries no
+    signal: the answer then comes from `state_iteration`, the state's own
+    counter, which sits at i + 1 after iteration i (0 without it)."""
     active = history.active.cpu().numpy()
-    done = (np.zeros(active.shape[0], bool) if done is None
-            else np.asarray(done.cpu() if torch.is_tensor(done) else done, bool))
+    b = active.shape[0]
+    done = _host_bools(done, b)
+    if active.shape[1] == 0:
+        if state_iteration is None:
+            return [0] * b
+        its = np.asarray(state_iteration.cpu() if torch.is_tensor(state_iteration)
+                         else state_iteration, np.int64).reshape(b)
+        return [int(it) - 1 if stopped else int(it) for it, stopped in zip(its, done)]
     out = []
     for act, stopped in zip(active, done):
         n_act = int(act.sum())
@@ -209,7 +285,15 @@ class SwarmResult:
 
     @property
     def last_iteration(self) -> list[int]:
-        return last_iteration(self.history, done=self.state.done)
+        return last_iteration(self.history, done=self.state.done,
+                              state_iteration=self.state.iteration)
+
+    def swarm(self, b: int) -> "SwarmResult":
+        """Swarm b alone, as a B = 1 result on the host: what `pso/io.py`
+        and the stage's reports take (the JAX package's per-class
+        `SwarmResult`)."""
+        pick = lambda t: type(t)(*(x[b:b + 1].cpu() for x in t))  # noqa: E731
+        return SwarmResult(pick(self.state), pick(self.history), pick(self.init_state), self.hp)
 
     def _active_count(self, b: int) -> int:
         return int(self.history.active[b].sum())
@@ -229,11 +313,14 @@ class SwarmResult:
 
     def history_dict(self, b: int = 0) -> dict:
         """The reference optimize() history dict of swarm b
-        (util_pso.py:173,182-184) plus the per-iteration candidate series."""
+        (util_pso.py:173,182-184) plus the per-iteration candidate series:
+        lists of np.float32, as the JAX package's (`overall_history.pkl`
+        holds them)."""
         n_act = self._active_count(b)
         h = self.history
+        series = lambda x: list(x[b, :n_act].cpu().numpy())  # noqa: E731
         return {
-            "mean_mse": h.mean_mse[b, :n_act].tolist(),
-            "global_best_val": h.g_best_val[b, :n_act].tolist(),
-            "global_best_dummy": h.g_best_dummy[b, :n_act].tolist(),
+            "mean_mse": series(h.mean_mse),
+            "global_best_val": series(h.g_best_val),
+            "global_best_dummy": series(h.g_best_dummy),
         }

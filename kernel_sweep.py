@@ -96,7 +96,7 @@ def main() -> int:
         for geometry in ((8, 1), (4, 1), (2, 1), (1, 1), (1, 2), (1, 4), (1, 8)):
             cs.bits_equal(rescale01_rows(x, geometry=geometry), want)
             cycle = itertools.cycle(sets)
-            us, _ = cs.device_us(lambda: rescale01_rows(*next(cycle), geometry=geometry),
+            us, _, _ = cs.device_us(lambda: rescale01_rows(*next(cycle), geometry=geometry),
                                  cs.KERNEL_NAMES["rescale01_rows"])
             print(json.dumps({"kernel": "rescale01_rows", "shape": [n, 784],
                               "team": geometry[0], "rows_per_cta": geometry[1],
@@ -120,7 +120,7 @@ def main() -> int:
             for got, ref in zip(swarm_update(*args, rows_per_cta=rows), want):
                 cs.bits_equal(got, ref)
             cycle = itertools.cycle(sets)
-            us, _ = cs.device_us(lambda: swarm_update(*next(cycle), rows_per_cta=rows),
+            us, _, _ = cs.device_us(lambda: swarm_update(*next(cycle), rows_per_cta=rows),
                                  cs.KERNEL_NAMES["swarm_update"])
             print(json.dumps({"kernel": "swarm_update", "shape": [b, n, d],
                               "rows_per_cta": rows, "tiles": -(-n // rows), "device_us": us,
@@ -134,7 +134,7 @@ def main() -> int:
             ("swarm_update", lambda: swarm_update(*main_swarm_args),
              main_swarm_args[0].shape),
             ("rescale01_rows", lambda: rescale01_rows(x), x.shape)):
-        us, profiled = cs.device_us(lambda: (flush.zero_(), fn()), cs.KERNEL_NAMES[name])
+        us, profiled, _ = cs.device_us(lambda: (flush.zero_(), fn()), cs.KERNEL_NAMES[name])
         print(json.dumps({"kernel": name, "shape": list(shape), "l2": "flushed",
                           "device_us": us, "profiled_launches": profiled, "chosen": True,
                           "card": card}), flush=True)
