@@ -18,7 +18,13 @@ reproducible, the bf16 gate, agreement with the CPU path on a small
 input), runs the pso-discovery stage through its CLI on JAX-format
 checkpoints of the same models (the pipeline phase, between the main-path
 runs and the first profiler session: batched fp32 bit-equal to the runner,
-sequential, the shipped dimension 2 with its landscape, bf16), then times
+sequential, the shipped dimension 2 with its landscape, bf16), runs the
+pso-inverter stage through its CLI (the inverter phase, right after: a
+seeded encoder f=64 z=100 beside G and the ResNet-50 as JAX-format
+checkpoints, a 1-epoch fine-tune of the re-headed binary assessor on the
+synthetic digits, 256 encoder-seeded particles x 50 iterations; the
+try-load rerun and the runner called directly bit-equal to it; bf16; 5
+fine-tune steps profiled), then times
 each kernel at the main path's shape and at a large one (device µs per
 launch from the profiler over the last 50 of 60 calls in a session, as
 the profiler loses the kernel events of a session's first calls; beside
@@ -48,6 +54,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_CLASSES, N_PARTICLES, N_ITERATIONS, DIM = 8, 32, 50, 100
+INV_PARTICLES, PATIENT = 256, 1  # the pso-inverter's swarm, its OoD patient
 EPS = 0.1
 SEED = 0
 GATE = 1e-3  # |g_best fp32 - bf16|, bench.py's gate
@@ -69,8 +76,8 @@ CFG = ROOT / "configs" / "dcgan_mnist.yaml"
 SWARM_SHAPES = ((N_CLASSES, N_PARTICLES, DIM), (N_CLASSES, 256, DIM), (3, 13, 7),
                 (1, N_PARTICLES, DIM), (4 * N_CLASSES, N_PARTICLES, DIM), (2, 37, 13),
                 (1, 4096, 1024), (1, 16, 2048), (2, 9, 1030),
-                (N_CLASSES, N_PARTICLES, 2), (1, N_PARTICLES, 2))
-SWARM_TIMED = ((N_CLASSES, N_PARTICLES, DIM), (1, 4096, 1024))
+                (N_CLASSES, N_PARTICLES, 2), (1, N_PARTICLES, 2), (1, INV_PARTICLES, DIM))
+SWARM_TIMED = ((N_CLASSES, N_PARTICLES, DIM), (1, 4096, 1024), (1, INV_PARTICLES, DIM))
 # B2 [N, F]: the main path's images, short unaligned and odd rows, many rows,
 # rows in registers at every team size (8, 4, 2, 1 warps) and register
 # depth (1 to 32 float4 a thread), long rows (one CTA each; 65536 = a
@@ -342,7 +349,7 @@ def check_swarm_update(models, device) -> tuple[dict, list]:
         log(f"swarm_update [{b},{n},{d}]: bit-equal to plain over 5 iterations")
     to_time = [(shape, timed_args[shape],
                 swarm_update_work(*shape, int((timed_args[shape][4] < timed_args[shape][3]).sum())),
-                shape != (N_CLASSES, N_PARTICLES, DIM))
+                shape == (1, 4096, 1024))
                for shape in SWARM_TIMED]
     return {"name": "swarm_update", "route": "cuda",
             "source": "gan_discovery_pso_tpu_torch/csrc/swarm_update.cu",
@@ -424,15 +431,25 @@ def profile_main_path(models, device, kernels, dtype=None) -> dict:
     device busy time (the sum of the device intervals of kernels, copies and
     sets on the one stream), the idle share, device µs per launch of each
     port kernel, and the kernels taking most device time."""
-    import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, seconds, _ = drive_main_path(models, device, dtype, kernels)
+    return device_summary(prof, seconds)
+
+
+def device_summary(prof, seconds: float) -> dict:
+    """A profiled run's wall time, device busy time (the sum of the device
+    intervals of kernels, copies and sets on the one stream), idle share,
+    device µs per launch of each port kernel, and the kernels taking most
+    device time."""
+    from torch.autograd import DeviceType
+
     per_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation on the device timeline (Optimizer.step#Adam.step)
+        # spans kernels that are counted themselves
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             total, count = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
     busy_us = sum(t for t, _ in per_name.values())
@@ -450,6 +467,39 @@ def profile_main_path(models, device, kernels, dtype=None) -> dict:
         "top_device_kernels": [{"name": k[:90], "ms": t / 1e3, "count": c}
                                for k, (t, c) in top],
     }
+
+
+def profile_fine_tune(fine, ds, adam, steps: int = 5) -> dict:
+    """`steps` train steps of the pso-inverter's fine-tune (a copy of the
+    binary assessor, batches of 128 of `ds` in the stage's drange, fp32
+    parity) under torch.profiler, after 2 warm-up steps: per-step wall ms,
+    and the device summary over them."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.train.cnn import EpochCounts, make_cnn_steps
+    from gan_discovery_pso_tpu_torch.train.common import make_optimizer
+
+    model = copy.deepcopy(fine)
+    train_step, _ = make_cnn_steps(model, make_optimizer(adam, model.parameters()))
+    idx = torch.arange(128 * (steps + 2), device=ds.images.device) % ds.images.shape[0]
+    batches = [(ds.images[i], (ds.labels[i] == PATIENT).to(torch.int32))
+               for i in idx.split(128)]
+    with fp32_parity():
+        for x, y in batches[:2]:
+            train_step(x, y, EpochCounts.zero(2, x.device))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for x, y in batches[2:]:
+                train_step(x, y, EpochCounts.zero(2, x.device))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    return {"steps": steps, "wall_ms_per_step": seconds * 1e3 / steps,
+            **device_summary(prof, seconds)}
 
 
 def check_against_cpu(models, device, kernels) -> float:
@@ -762,6 +812,234 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None) -> dict:
     return out
 
 
+def write_encoder(models_root: Path, run_id: int, device) -> tuple:
+    """A seeded plain encoder (DCGAN init, f=64, z=DIM) as a JAX inverter
+    run's `<models>/mnist/{id}--inverter/encoder.msgpack`: (encoder, dir)."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.compat import encoder_tree
+    from gan_discovery_pso_tpu_torch.core.checkpoint import save_pytree
+    from gan_discovery_pso_tpu_torch.models import Encoder, EncoderDef, dcgan_init_
+
+    rng = torch.Generator(device=device).manual_seed(SEED + 6)
+    enc = dcgan_init_(Encoder(EncoderDef(DIM, 1, 64), device=device), rng).eval()
+    d = models_root / "mnist" / f"{run_id:05d}--inverter"
+    save_pytree(d / "encoder.msgpack", {"params": encoder_tree(enc.state_dict())})
+    return enc, d
+
+
+def stage_numbers(reports: Path) -> dict:
+    """The seconds of a pso-inverter run: the swarm's (its `timing.json`
+    key), and from its log phase 1 (where it fine-tuned, the data load and
+    the training) and the artifacts."""
+    import re
+
+    lines = (reports / "log.txt").read_text().splitlines()
+    found = lambda prefix: [ln for ln in lines if ln.startswith(prefix)]  # noqa: E731
+    line = found("[pso_inverter] patient")[-1]
+    grab = lambda pattern, text=line: float(re.search(pattern, text).group(1))  # noqa: E731
+    timing = json.loads((reports / "timing.json").read_text())
+    out = {"phase1_s": grab(r"phase 1 \([a-z-]+\) ([0-9.]+)s"),
+           "runner_s": timing[f"pso_inverter_time_ood_patient_{PATIENT}"],
+           "artifact_s": grab(r"written in ([0-9.]+)s")}
+    for tuned in found("[pso_inverter] fine-tune:"):
+        out.update(data_s=grab(r"data ([0-9.]+)s", tuned), train_s=grab(r"epochs ([0-9.]+)s", tuned))
+    return out
+
+
+def check_inverter_g_best(g, what: str) -> float:
+    g = float(g)
+    if not (np.isfinite(g) and 2 * EPS <= g <= 1 + 2 * EPS + 4):
+        raise AssertionError(f"inverter {what}: g_best {g} out of [2 eps, 1 + 2 eps + 4]")
+    return g
+
+
+def same_swarm(a, b, what: str) -> None:
+    """Two B = 1 SwarmResults bit-equal: trajectories, velocities, g_best."""
+    if not (np.array_equal(a.particle_trajectories(), b.particle_trajectories())
+            and np.array_equal(a.velocity_trajectories(), b.velocity_trajectories())
+            and np.array_equal(a.g_best_val.numpy(), b.g_best_val.numpy())):
+        raise AssertionError(f"inverter: {what} differs from the CLI run")
+
+
+def inverter_phase(models, device, kernels, card: str, sets=()) -> dict:
+    """The pso-inverter stage on JAX-format checkpoints: through its CLI
+    (1-epoch fine-tune, 256 particles x 50 iterations, fp32), again on a
+    run dir that holds the fine-tuned assessor (the try-load branch), the
+    runner called directly on the stage's draws, and bf16 on the try-load
+    branch. Returns each run's launches. `sets` adds config overrides (a
+    rehearsal on the CPU cuts the sizes)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch import pipelines
+    from gan_discovery_pso_tpu_torch.cli.main import main as cli_main
+    from gan_discovery_pso_tpu_torch.core import load_config
+    from gan_discovery_pso_tpu_torch.core.config import AdamConfig, DataConfig
+    from gan_discovery_pso_tpu_torch.core.prng import KeyChain
+    from gan_discovery_pso_tpu_torch.models import ResNetDef
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.pipelines import (
+        StageContext, assessor_factory, load_cnn, load_encoder, load_gan, run_pso_inverter)
+    from gan_discovery_pso_tpu_torch.pso import (
+        SwarmResult, draw_uniforms, make_inverter_runner, swarm_init_from_positions)
+
+    names = [k.__name__ for k in kernels]
+    counts = lambda: {k.__name__: k.launches for k in kernels}  # noqa: E731
+
+    def zero():
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+
+    out, timings = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_inv_") as tmp_name:
+        tmp = Path(tmp_name)
+        # 1. JAX-format checkpoints, read back bit for bit
+        dirs = write_checkpoints(tmp / "upstream", 1, *models)
+        enc, dirs["inv"] = write_encoder(tmp / "upstream", 1, device)
+        overrides = {"trainer_gan.z_dim": DIM, "data.data_dir": str(tmp / "no_mnist"),
+                     **{f"data.{k}_dir": str(tmp / "runs" / k)
+                        for k in ("reports", "model", "interim")}, **dict(sets)}
+        cfg = load_config(CFG, overrides=overrides)
+        data_cfg = DataConfig.from_config(cfg.data)
+        iid = tuple(data_cfg.iid_classes)
+        rdef = assessor_factory(cfg, data_cfg, len(iid))[0]
+        check_loaded(enc, load_encoder(dirs["inv"], device=device), "encoder f=64 z=100")
+        check_loaded(models[0], load_gan(dirs["gan"], device=device), "generator z=100")
+        check_loaded(models[1], load_cnn(dirs["cnn"], rdef, device=device), "ResNet-50")
+        log("inverter: JAX-format checkpoints (encoder f=64 z=100, G(64) z=100, "
+            "ResNet-50) written and read back bit-equal")
+
+        # 2. the CLI on a fresh run dir: phase 1 fine-tunes; the stage's
+        # return value is kept to hold model_1.msgpack against it
+        kept = {}
+        real = pipelines.run_pso_inverter
+
+        def keep(*a, **kw):
+            kept["res"], kept["fine"] = real(*a, **kw)
+            return kept["res"], kept["fine"]
+
+        argv = ["pso-inverter", "--cfg", str(CFG), "--epochs", "1", "--ood-patient",
+                str(PATIENT), "--path-gan", str(dirs["gan"]), "--path-cnn", str(dirs["cnn"]),
+                "--path-inverter", str(dirs["inv"]), "--device", str(device), "--set",
+                *(f"{k}={v}" for k, v in overrides.items())]
+        pipelines.run_pso_inverter = keep
+        try:
+            zero()
+            t0 = time.perf_counter()
+            rc = cli_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pipelines.run_pso_inverter = real
+        out["inverter_cli"] = counts()
+        if rc != 0:
+            raise AssertionError(f"inverter CLI returned {rc}")
+        res, fine = kept["res"], kept["fine"]
+        n_iters, n = res.hp.n_iterations, res.hp.n_particles
+        if out["inverter_cli"] != dict.fromkeys(names, n_iters):
+            raise AssertionError(f"inverter CLI launches {out['inverter_cli']}, not {n_iters} each")
+        reports = tmp / "runs" / "reports" / "mnist" / "00001--pso_inverter"
+        models_dir = tmp / "runs" / "model" / "mnist" / "00001--pso_inverter"
+        g32 = check_inverter_g_best(res.g_best_val[0], "CLI")
+        with open(reports / "general" / "overall_history.pkl", "rb") as f:
+            history = pickle.load(f)
+        cnn_hist = history[f"cnn_history_ood_patient_{PATIENT}"]
+        if not all(np.isfinite(v).all() and len(v) == 1 for v in cnn_hist.values()):
+            raise AssertionError(f"inverter fine-tune history {cnn_hist}")
+        bdef = ResNetDef(rdef.model_name, rdef.image_channels, 2, iid + (PATIENT,))
+        check_loaded(fine, load_cnn(models_dir, bdef, label=PATIENT, device=device),
+                     f"model_{PATIENT}.msgpack")
+        timings["cli"] = {"stage_s": wall, **stage_numbers(reports)}
+        log(f"inverter CLI: {n} particles x {n_iters} iterations, g_best {g32:.6f}; "
+            f"fine-tune history {json.dumps(cnn_hist)}; model_{PATIENT}.msgpack read back "
+            "bit-equal to the stage's assessor")
+
+        # 3. the try-load branch: a new run dir holding that model_1.msgpack
+        def try_load_ctx():
+            ctx = StageContext.create(CFG, "pso_inverter", overrides=overrides, device=device)
+            shutil.copy(models_dir / f"model_{PATIENT}.msgpack", ctx.run.models_dir)
+            return ctx
+
+        gen = load_gan(dirs["gan"], device=device)
+        cnn = load_cnn(dirs["cnn"], rdef, device=device)
+        enc = load_encoder(dirs["inv"], device=device)
+        ctx = try_load_ctx()
+        zero()
+        t0 = time.perf_counter()
+        with ctx.tee():
+            again, _ = run_pso_inverter(ctx, gen, enc, cnn, rdef, ood_patient=PATIENT)
+        torch.cuda.synchronize()
+        out["inverter_try_load"] = counts()
+        timings["try_load"] = {"stage_s": time.perf_counter() - t0,
+                               **stage_numbers(ctx.run.reports_dir)}
+        same_swarm(again, res, "the try-load rerun")
+
+        # 4. the runner alone, on the stage's slices, positions and draws
+        ood = ctx.dataset("train", classes=(PATIENT,), drange=(-1, 1))
+        slices = ood.images[:n]
+        with fp32_parity(), torch.inference_mode():  # as the stage encodes
+            pos = enc(slices).reshape(n, -1)
+        g = KeyChain(int(cfg.seed))("pso", device)  # the stage's draw
+        init = swarm_init_from_positions(g, pos[None].clone(), res.hp.w_inertia)
+        r1, r2 = draw_uniforms(g, n_iters, 1, n, device)
+        run = make_inverter_runner(res.hp, device=device)
+        zero()
+        t0 = time.perf_counter()
+        final, hist, first = run(gen, fine, 1, slices, None, init_state=init, r1=r1, r2=r2)
+        torch.cuda.synchronize()
+        runner_s = time.perf_counter() - t0
+        out["inverter_runner"] = counts()
+        same_swarm(SwarmResult(final, hist, first, res.hp).swarm(0), res, "the runner alone")
+
+        # 5. the encoder on the card against the CPU
+        small = slices[:16]
+        with fp32_parity(), torch.inference_mode():
+            on_card = enc(small).cpu()
+            on_cpu = copy.deepcopy(enc).cpu()(small.cpu())
+        torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-5)
+        enc_diff = float((on_card - on_cpu).abs().max())
+
+        # 6. bf16 forwards on the try-load branch: recorded, not gated
+        ctx = try_load_ctx()
+        zero()
+        with ctx.tee():
+            bf16, _ = run_pso_inverter(ctx, gen, enc, cnn, rdef, ood_patient=PATIENT,
+                                       fast_math_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out["inverter_bf16"] = counts()
+        bf16_diff = abs(check_inverter_g_best(bf16.g_best_val[0], "bf16") - g32)
+        timings["bf16"] = stage_numbers(ctx.run.reports_dir)
+
+        # 7. where the fine-tune's time goes: a few of its steps profiled
+        tune = profile_fine_tune(fine, ctx.dataset("train", classes=bdef.iid_classes,
+                                                   drange=(0, 1)),
+                                 AdamConfig.from_config(cfg.trainer_pso_inverter.optimizer))
+    for label, launches in out.items():
+        if launches != dict.fromkeys(names, n_iters):
+            raise AssertionError(f"{label}: launches {launches}, not {n_iters} each")
+
+    evals = n * n_iters
+    log(f"inverter: try-load rerun and runner alone bit-equal to the CLI run "
+        f"(trajectories, velocities, g_best); encoder card vs CPU {enc_diff:.3e} (rtol 1e-4); "
+        f"|g_best fp32 - bf16| {bf16_diff:.3e} (not gated)")
+    for label, t in timings.items():
+        stage = f"stage {t['stage_s']:.6f} s, " if "stage_s" in t else ""
+        tuned = (f" (data {t['data_s']:.6f} s, training {t['train_s']:.6f} s)"
+                 if "train_s" in t else "")
+        log(f"inverter {label}: {stage}phase 1 {t['phase1_s']:.6f} s{tuned}, runner in stage "
+            f"{t['runner_s']:.6f} s ({evals / t['runner_s']:.0f} evals/s), artifacts "
+            f"{t['artifact_s']:.6f} s ({card})")
+    log(f"inverter runner alone (fp32, direct call): {runner_s:.6f} s, "
+        f"{evals / runner_s:.0f} evals/s ({card})")
+    log(f"inverter fine-tune steps profiled ({card}): " + json.dumps(tune))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -822,6 +1100,7 @@ def main() -> int:
     log(f"fp32 runs identical; bf16 gate max |g32 - g16| = {gate:.3e} <= {GATE}")
     log(f"evals/s warm: fp32 {evals / s32:.0f}, bf16 {evals / s16:.0f} ({card})")
     pipeline_launches = pipeline_phase(models, device, KERNELS, card)
+    pipeline_launches.update(inverter_phase(models, device, KERNELS, card))
     prof = profile_main_path(models, device, KERNELS)
     log("profile fp32 main path: " + json.dumps(prof))
     log("profile bf16 main path: "

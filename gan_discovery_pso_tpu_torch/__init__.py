@@ -7,17 +7,24 @@ neither it nor JAX. Module paths mirror the JAX package's:
   unless the caller names another device), named random streams
   (`prng.py`), run dirs, logging, and flax-msgpack checkpoints read and
   written without flax (`checkpoint.py`);
-- `ops/`: convs, eval BN, pools, the plain rescale, the precision modes, and
-  `ops/kernels/` — the hand-written CUDA kernels (`csrc/*.cu`) that replace
-  the JAX package's two Pallas TPU kernels, each beside its plain version;
-- `models/`: the DCGAN generator and the ResNet assessors as `nn.Module`s;
-- `pso/`: fitness, swarm, the batched discovery runner (the main path),
-  and the particle artifacts (`io.py`);
+- `ops/`: convs, eval and train BN, pools, the plain rescale, the drange
+  map, the precision modes, and `ops/kernels/` — the hand-written CUDA
+  kernels (`csrc/*.cu`) that replace the JAX package's two Pallas TPU
+  kernels, each beside its plain version;
+- `models/`: the DCGAN generator, the plain encoder and the ResNet
+  assessors as `nn.Module`s;
+- `data/`: MNIST idx files or the synthetic digits, as tensors on the
+  stage's device;
+- `train/`: the optimizers and the assessor's training loop;
+- `pso/`: discovery and hybrid-inversion fitness, swarm, the batched
+  discovery runner (the main path), the inverter runner, and the particle
+  artifacts (`io.py`);
 - `compat/weights.py`: JAX parameter trees and reference checkpoints into
   the port's state dicts, and back;
-- `pipelines/`, `analysis/reporting.py`, `cli/`: the `pso-discovery` stage,
-  its report writers and its command line
-  (`python -m gan_discovery_pso_tpu_torch.cli pso-discovery`).
+- `pipelines/`, `analysis/reporting.py`, `cli/`: the `pso-discovery`,
+  `pso-inverter`, `iid-extract` and `ood-extract` stages, their report
+  writers and their command line
+  (`python -m gan_discovery_pso_tpu_torch.cli <stage>`).
 """
 
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig

@@ -4,7 +4,8 @@ scatters, the 2-D fitness landscape, GIFs and image grids (counterpart of
 :22-79, `plot_convergence` :83, `plot_particle_dimensions` :95,
 `plot_fitness_landscape_2d` :116, `make_gif` :142, `plot_mean_mse` :418,
 `plot_particles_last_iteration` :431, `grid_canvas` :470,
-`save_image_grid` :491).
+`save_image_grid` :491, `superimage` :513, `plot_digits` :624,
+`plot_cnn_training` :647).
 
 matplotlib and PIL are imported inside the writers, so the package imports
 on a host that lacks them; the stage asks `host_has` before it calls a
@@ -20,6 +21,7 @@ most figures (the first of each file-name pattern, digits normalised, and a
 from __future__ import annotations
 
 import importlib.util
+import math
 import os
 import re
 import zlib
@@ -224,3 +226,83 @@ def save_image_grid(images, out_path, ncols: int = 8, drange=(0, 1), padding: in
     img = Image.fromarray(arr.squeeze(-1) if arr.shape[-1] == 1 else arr)
     img.save(out_path, format="PNG")
     return Path(out_path)
+
+
+def _round_half_up(number: float) -> int:
+    """The reference's grid-side rule (util_data.py:312-314):
+    int(ceil(x + 0.5)), so sqrt(16) gives side 5 and sqrt(64) side 9."""
+    return int(math.ceil(number + 0.5))
+
+
+def superimage(images, out_path, drange=(-1, 1), side=None, cap=None):
+    """The reference's `synthetic_images_{epoch}.png` superimage
+    (show_gan_images, util_report_inverter.py:100-131): the first `cap`
+    images, side = round_half_up(sqrt(N)), blank slots filled with zero
+    images in the model's drange, tiles with no padding, raw pixels."""
+    from PIL import Image
+
+    imgs = np.asarray(images, np.float32)
+    if cap is not None:
+        imgs = imgs[:cap]
+    n = imgs.shape[0]
+    if side is None:
+        side = _round_half_up(np.sqrt(n))
+    if n < side * side:
+        blanks = np.zeros((side * side - n, *imgs.shape[1:]), np.float32)
+        imgs = np.concatenate([imgs, blanks], axis=0)
+    canvas = grid_canvas(imgs, ncols=side, drange=drange, padding=0)
+    arr = (canvas * 255.0 + 0.5).astype(np.uint8).transpose(1, 2, 0)
+    img = Image.fromarray(arr.squeeze(-1) if arr.shape[-1] == 1 else arr)
+    img.save(out_path, format="PNG")
+    return Path(out_path)
+
+
+def plot_digits(ds, out_path, n: int = 5, seed: int = 42):
+    """5x5 seeded sample of labelled digits (reference util_mnist.py:6-17),
+    written on a run's first train-split load."""
+    imgs = ds.images.cpu().numpy()
+    labels = ds.labels.cpu().numpy()
+    if len(imgs) == 0:
+        return None
+    plt = _plt()
+    idx = np.random.RandomState(seed).randint(0, len(imgs), size=n * n)
+    fig, axs = plt.subplots(n, n, figsize=(8, 8))
+    for ax, i in zip(axs.flatten(), idx):
+        ax.imshow(imgs[i].squeeze(), cmap="gist_gray")
+        ax.set_title("Label: %d" % int(labels[i]))
+        ax.set_xticks([])
+        ax.set_yticks([])
+    fig.tight_layout()
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_cnn_training(history: dict, out_dir, label=None):
+    """One train/val figure per metric (reference plot_training,
+    util_report.py:143-225), with the reference's file names, suffixed
+    `_{label}` for a one-vs-all assessor."""
+    plt = _plt()
+    out_dir = Path(out_dir)
+    suffix = f"_{label}" if label is not None else ""
+    paths = []
+    for tk, vk, title, fname in (
+        ("train_loss", "val_loss", "Training and validation loss", "train_val_loss"),
+        ("train_acc", "val_acc", "Training and Validation Accuracy", "train_val_acc"),
+        ("train_f1", "val_f1", "Training and Validation F1-score", "train_val_f1-score"),
+        ("train_prec", "val_prec", "Training and Validation Precision", "train_val_precision"),
+        ("train_rec", "val_rec", "Training and Validation Recall", "train_val_recall"),
+    ):
+        if not (history.get(tk) and history.get(vk)):
+            continue
+        fig, ax = plt.subplots(figsize=(8, 6))
+        ax.plot(history[tk], label=tk, color="r")
+        ax.plot(history[vk], label=vk, color="b")
+        ax.set_title(title)
+        ax.set_xlabel("Epochs")
+        ax.legend()
+        p = out_dir / f"{fname}{suffix}.png"
+        _savefig(fig, p, 200)
+        plt.close(fig)
+        paths.append(p)
+    return paths

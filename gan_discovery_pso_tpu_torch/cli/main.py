@@ -1,19 +1,29 @@
 """Command-line entry point of the port (counterpart of
 `gan_discovery_pso_tpu/cli/main.py`: `_parse_set`, `_add_common`, `_TINY`,
-`_ctx` :33-86, `_load_gan`/`_load_cnn` :271-290, the `pso-discovery`
-branch :371-378):
+`_ctx`, `_epochs` :33-90, `_load_gan`/`_load_cnn` :271-290, and the
+`pso-discovery`, `iid-extract`/`ood-extract` and `pso-inverter` branches
+:371-397):
 
     python -m gan_discovery_pso_tpu_torch.cli pso-discovery \\
         --cfg configs/dcgan_mnist.yaml --path-gan DIR --path-cnn DIR \\
-        [--batch-classes] [--fast-math] [--tiny] [--set key=value ...] \\
-        [--device cuda|cpu|cuda:N]
+        [--batch-classes] [--fast-math] [--tiny] [--limit N] \\
+        [--set key=value ...] [--device cuda|cpu|cuda:N]
+    python -m gan_discovery_pso_tpu_torch.cli pso-inverter \\
+        --path-gan DIR --path-cnn DIR --path-inverter DIR \\
+        [--ood-patient P] [--epochs E] [--fast-math] ...
+    python -m gan_discovery_pso_tpu_torch.cli iid-extract|ood-extract \\
+        --path-inverter DIR [--path-gan DIR] ...
 
-`--path-gan` and `--path-cnn` are the models dirs of the JAX package's (or
-a later port's) `dcgan` and `cnn-multipatient` runs: the port reads their
-flax-msgpack checkpoints. The stage runs on the card; `--device cpu` is the
-port's counterpart of `JAX_PLATFORMS=cpu`. `--fast-math` runs the forwards
-in bf16. Every other stage of the JAX CLI exits non-zero, naming the ROADMAP
-item that will port it.
+`--path-gan`, `--path-cnn` and `--path-inverter` are the models dirs of the
+JAX package's (or a later port's) `dcgan`, `cnn-multipatient` and
+`inverter` runs: the port reads their flax-msgpack checkpoints. The stages
+run on the card; `--device cpu` is the port's counterpart of
+`JAX_PLATFORMS=cpu`. `--fast-math` runs the swarm's forwards in bf16 (the
+pso-inverter's fine-tune stays in fp32 parity). `--limit N` caps every
+dataset load at N images; `--tiny` caps at 512 unless --limit says
+otherwise, and gives a 1-epoch fine-tune unless --epochs does. Every other
+stage of the JAX CLI exits non-zero, naming the ROADMAP item that will port
+it.
 """
 
 from __future__ import annotations
@@ -27,8 +37,7 @@ import torch
 # ROADMAP item of each
 NOT_PORTED = {
     "cae": "A11", "classifiers": "A11", "dcgan": "A9", "cnn": "A10",
-    "cnn-multipatient": "A10", "inverter": "A12", "iid-extract": "A12",
-    "ood-extract": "A12", "pso-inverter": "A12", "regularize-inverter": "A12",
+    "cnn-multipatient": "A10", "inverter": "A12", "regularize-inverter": "A12",
     "regularize-inverter-statistics": "A12", "vqvae": "A13", "pixelcnn-prior": "A13",
     "pso-analysis": "A15", "pso-analysis-clustering": "A15",
     "pso-analysis-distance": "A15", "pso-inverter-analysis": "A15",
@@ -55,11 +64,10 @@ def _add_common(p):
                    help="dotted config overrides (repeatable)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny-config smoke run (small models and swarms)")
-    p.add_argument("--limit", type=int, default=None,
-                   help="cap images per dataset (not ported: ROADMAP A14)")
+    p.add_argument("--limit", type=int, default=None, help="cap images per dataset")
     p.add_argument("--fast-math", action="store_true",
-                   help="run the model forwards in bf16 (the swarm math stays "
-                        "fp32) instead of the fp32-parity default")
+                   help="run the swarm's model forwards in bf16 (the swarm math "
+                        "stays fp32) instead of the fp32-parity default")
     p.add_argument("--device", default="cuda",
                    help="torch device of the stage (default: the CUDA card; "
                         "'cpu' runs the plain PyTorch path)")
@@ -85,7 +93,21 @@ def _ctx(args, module):
     overrides = _parse_set(args.set)
     if args.tiny:
         overrides = {**_TINY, **overrides}
-    return StageContext.create(args.cfg, module, overrides=overrides, device=args.device)
+    ctx = StageContext.create(args.cfg, module, overrides=overrides, device=args.device)
+    if args.limit or args.tiny:
+        ctx.limit = args.limit or 512
+    return ctx
+
+
+def _epochs(args):
+    return 1 if args.tiny and args.epochs is None else args.epochs
+
+
+def _require(value, flag: str, hint: str):
+    """Exit with a diagnosis when a prerequisite-artifact flag is missing."""
+    if not value:
+        sys.exit(f"{flag} required ({hint})")
+    return value
 
 
 def _load_gan(args, ctx):
@@ -106,6 +128,29 @@ def _load_cnn(args, ctx):
     return load_cnn(args.path_cnn, rdef, device=ctx.device), rdef
 
 
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="gan-discovery-pso-tpu-torch")
+    sub = parser.add_subparsers(dest="stage", required=True)
+    for name in ("pso-discovery", "pso-inverter", "iid-extract", "ood-extract"):
+        p = sub.add_parser(name)
+        _add_common(p)
+        p.add_argument("--path-gan", default=None, help="dcgan stage model dir")
+        if name != "pso-discovery":
+            p.add_argument("--path-inverter", default=None, help="inverter stage model dir")
+        if name in ("pso-discovery", "pso-inverter"):
+            p.add_argument("--path-cnn", default=None, help="cnn stage model dir")
+        if name == "pso-discovery":
+            p.add_argument("--batch-classes", action="store_true",
+                           help="advance all class swarms in one batch")
+            p.add_argument("--shard-swarm", type=int, default=None, metavar="N",
+                           help="shard particles over N devices (not ported: ROADMAP A16)")
+        if name == "pso-inverter":
+            p.add_argument("--ood-patient", type=int, default=None)
+            p.add_argument("--epochs", type=int, default=None,
+                           help="fine-tune epochs (default: trainer_pso_inverter.epochs)")
+    return parser
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in NOT_PORTED:
@@ -113,33 +158,41 @@ def main(argv=None):
               f"(ROADMAP {NOT_PORTED[argv[0]]}); run it with "
               "`python -m gan_discovery_pso_tpu.cli`", file=sys.stderr)
         return 2
-    parser = argparse.ArgumentParser(prog="gan-discovery-pso-tpu-torch")
-    sub = parser.add_subparsers(dest="stage", required=True)
-    p = sub.add_parser("pso-discovery")
-    _add_common(p)
-    p.add_argument("--path-gan", default=None, help="dcgan stage model dir")
-    p.add_argument("--path-cnn", default=None, help="cnn stage model dir")
-    p.add_argument("--batch-classes", action="store_true",
-                   help="advance all class swarms in one batch")
-    p.add_argument("--shard-swarm", type=int, default=None, metavar="N",
-                   help="shard particles over N devices (not ported: ROADMAP A16)")
-    args = parser.parse_args(argv)
-    for flag, given, item in (("--shard-swarm", args.shard_swarm, "A16"),
-                              ("--limit", args.limit is not None, "A14")):
-        if given:
-            print(f"{flag}: not yet ported to the PyTorch package (ROADMAP {item})",
-                  file=sys.stderr)
-            return 2
+    args = _parser().parse_args(argv)
+    if getattr(args, "shard_swarm", None):
+        print("--shard-swarm: not yet ported to the PyTorch package (ROADMAP A16)",
+              file=sys.stderr)
+        return 2
+    if args.limit is not None and args.limit < 0:
+        print(f"--limit {args.limit}: a cap on images must not be negative", file=sys.stderr)
+        return 2
 
     from gan_discovery_pso_tpu_torch import pipelines as P
 
-    ctx = _ctx(args, args.stage.replace("-", "_"))
+    stage = args.stage
+    fast_math = torch.bfloat16 if args.fast_math else None
+    ctx = _ctx(args, stage.replace("-", "_"))
     with ctx.tee():
-        gen = _load_gan(args, ctx)
-        cnn, rdef = _load_cnn(args, ctx)
-        P.run_pso_discovery(ctx, gen, cnn, rdef, batch_classes=args.batch_classes,
-                            fast_math_dtype=torch.bfloat16 if args.fast_math else None)
-    print(f"[{args.stage}] done → {ctx.run.reports_dir}")
+        if stage == "pso-discovery":
+            gen = _load_gan(args, ctx)
+            cnn, rdef = _load_cnn(args, ctx)
+            P.run_pso_discovery(ctx, gen, cnn, rdef, batch_classes=args.batch_classes,
+                                fast_math_dtype=fast_math)
+        elif stage in ("iid-extract", "ood-extract"):
+            enc = P.load_encoder(_require(args.path_inverter, "--path-inverter",
+                                          "models dir of an inverter run"), device=ctx.device)
+            # the reference extractor also writes per-class G(E(x))
+            # superimages (iid_extractor.py:163-199); optional here
+            gen = _load_gan(args, ctx) if args.path_gan else None
+            P.run_extractor(ctx, enc, kind=stage.split("-")[0], gen=gen)
+        else:
+            gen = _load_gan(args, ctx)
+            enc = P.load_encoder(_require(args.path_inverter, "--path-inverter",
+                                          "models dir of an inverter run"), device=ctx.device)
+            cnn, rdef = _load_cnn(args, ctx)
+            P.run_pso_inverter(ctx, gen, enc, cnn, rdef, ood_patient=args.ood_patient,
+                               fine_tune_epochs=_epochs(args), fast_math_dtype=fast_math)
+    print(f"[{stage}] done → {ctx.run.reports_dir}")
     return 0
 
 

@@ -1,4 +1,6 @@
 from gan_discovery_pso_tpu_torch.compat.weights import (
+    encoder_state_dict,
+    encoder_tree,
     generator_state_dict,
     generator_tree,
     load_reference_checkpoint,
@@ -8,6 +10,8 @@ from gan_discovery_pso_tpu_torch.compat.weights import (
 )
 
 __all__ = [
+    "encoder_state_dict",
+    "encoder_tree",
     "generator_state_dict",
     "generator_tree",
     "load_reference_checkpoint",

@@ -9,7 +9,8 @@ reference's state-dict names, which the port's modules carry:
     tree = jax params/state (nested dicts; leaves are arrays of any kind
            np.asarray accepts, BN stats as an object with .mean/.var, a dict
            or a (mean, var) pair)
-    generator_state_dict(params, state) / resnet_state_dict(params, state)
+    generator_state_dict(params, state) / resnet_state_dict(params, state) /
+    encoder_state_dict(params)
         → {name: np.ndarray}
     to_tensors(...) → {name: torch.Tensor}, ready for
         module.load_state_dict(..., strict=True)
@@ -19,7 +20,8 @@ and back (counterpart of `compat/torch_import.py:54,121`):
     generator_tree(state_dict) / resnet_tree(state_dict)
         → (params, state) numpy trees in the JAX layout, BN stats as
           `{mean, var}` dicts and every dict's keys sorted, the form a JAX
-          run's checkpoint holds (`core/checkpoint.py` writes it)
+          run's checkpoint holds (`core/checkpoint.py` writes it);
+    encoder_tree(state_dict) → params (the plain encoder has no state)
 
 `load_reference_checkpoint` reads the reference's `.tar`
 (`{'epoch', 'model_state_dict', 'loss'}`) and bare `.pt` state dicts.
@@ -69,6 +71,16 @@ def generator_state_dict(params: dict, state: dict) -> dict:
     _put_conv(sd, "gen.1.0", params["convt2"])
     _put_bn(sd, "gen.1.1", params["bn2"], state["bn2"])
     _put_conv(sd, "gen.2", params["convt3"])
+    return sd
+
+
+def encoder_state_dict(params: dict) -> dict:
+    """Plain encoder params → `Encoder` state dict (`enc.*` names, JAX
+    `compat/torch_export.py:81-87`)."""
+    sd: dict = {}
+    _put_conv(sd, "enc.0", params["conv1"])
+    _put_conv(sd, "enc.2.0", params["conv2"])
+    _put_conv(sd, "enc.3", params["conv3"])
     return sd
 
 
@@ -128,6 +140,12 @@ def generator_tree(sd: dict) -> tuple[dict, dict]:
               "convt2": _conv_tree(sd, "gen.1.0"), "bn2": bn2,
               "convt3": _conv_tree(sd, "gen.2")}
     return _sorted(params), _sorted({"bn1": s1, "bn2": s2})
+
+
+def encoder_tree(sd: dict) -> dict:
+    """`Encoder` state dict → the JAX package's plain-encoder params."""
+    return _sorted({"conv1": _conv_tree(sd, "enc.0"), "conv2": _conv_tree(sd, "enc.2.0"),
+                    "conv3": _conv_tree(sd, "enc.3")})
 
 
 def resnet_tree(sd: dict) -> tuple[dict, dict]:

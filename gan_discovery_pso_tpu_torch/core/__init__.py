@@ -1,4 +1,5 @@
 from gan_discovery_pso_tpu_torch.core.config import (
+    AdamConfig,
     Config,
     PsoConfig,
     cfg_default,
@@ -6,4 +7,4 @@ from gan_discovery_pso_tpu_torch.core.config import (
 )
 from gan_discovery_pso_tpu_torch.core.device import resolve_device
 
-__all__ = ["Config", "PsoConfig", "cfg_default", "load_config", "resolve_device"]
+__all__ = ["AdamConfig", "Config", "PsoConfig", "cfg_default", "load_config", "resolve_device"]

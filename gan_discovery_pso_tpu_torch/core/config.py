@@ -9,9 +9,9 @@ the compute path consumes get typed frozen dataclasses so they hash and
 compare by value.
 
 PyTorch port: a copy of `gan_discovery_pso_tpu/core/config.py` reduced to
-what the discovery stage reads (`Config`, `load_config`, `cfg_default`,
-`PsoConfig`, `DataConfig` :198-232), so the port never imports the JAX
-package.
+what the ported stages read (`Config`, `load_config`, `cfg_default`,
+`PsoConfig`, `AdamConfig` :172-194, `DataConfig` :198-232), so the port
+never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -167,6 +167,32 @@ class PsoConfig:
                 if "early_stopping_pso" in block
                 else block.get("early_stopping", False)
             ),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConfig:
+    """Adam hyper-parameters (reference configs/dcgan_mnist.yaml:183-189)."""
+
+    lr: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+    weight_decay: float = 0.0
+    name: str = "Adam"  # "Adam" | "RMSprop": train.common.make_optimizer dispatches on it
+
+    @classmethod
+    def from_config(cls, block: Mapping[str, Any]) -> "AdamConfig":
+        name = str(block.get("name", "Adam"))
+        if name not in ("Adam", "RMSprop"):
+            raise ValueError(f"unknown optimizer {name!r}")
+        return cls(
+            lr=float(block["lr"]),
+            beta1=float(block.get("beta1", 0.9)),
+            beta2=float(block.get("beta2", 0.999)),
+            epsilon=float(block.get("epsilon", 1e-8)),
+            weight_decay=float(block.get("weight_decay", 0.0)),
+            name=name,
         )
 
 

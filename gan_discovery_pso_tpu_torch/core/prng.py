@@ -1,5 +1,6 @@
 """Named, counted random streams from one experiment seed (counterpart of
-`gan_discovery_pso_tpu/core/prng.py`: `seed_all` :22, `KeyChain` :35-80,
+`gan_discovery_pso_tpu/core/prng.py`: `seed_all` :22, `KeyChain` :35-80
+with `peek` :61,
 the FNV stream hash `_h` :83).
 
 The JAX package derives `jax.random` keys by folding stream names and
@@ -52,6 +53,11 @@ class KeyChain:
         n = self._counters.get(stream, 0)
         self._counters[stream] = n + 1
         return self._generator(stream, n, device)
+
+    def peek(self, stream: str, device=None) -> torch.Generator:
+        """The stream's next generator, without consuming it (the JAX
+        package's per-epoch data order, `pipelines/context.py:115`)."""
+        return self._generator(stream, self._counters.get(stream, 0), device)
 
     def child(self, name: str) -> "KeyChain":
         """Independent subtree (one per IiD class / OoD patient)."""

@@ -11,7 +11,10 @@ Schemes (reference src/utils/util_dcgan.py:45-48, src/pso/util_cnn.py:65-79):
 - DCGAN: N(0, 0.02) on conv, transposed-conv and BN weights; biases keep
   torch's default U(±1/sqrt(fan_in)); BN biases 0;
 - `glorot_normal` (the ResNet assessors): xavier-normal conv and linear
-  weights; linear biases keep torch's default; BN weight 1, bias 0.
+  weights; linear biases keep torch's default; BN weight 1, bias 0;
+- `torch_default` linear (a re-headed assessor's new head,
+  `change_classifier_head`): `nn.Linear`'s own kaiming-uniform weight and
+  U(±1/sqrt(fan_in)) bias.
 """
 
 from __future__ import annotations
@@ -75,3 +78,12 @@ def glorot_normal_init_(model: nn.Module, generator: torch.Generator) -> nn.Modu
             nn.init.ones_(m.weight)
             _reset_bn_(m)
     return model
+
+
+@torch.no_grad()
+def torch_default_linear_(layer: nn.Linear, generator: torch.Generator) -> nn.Linear:
+    """`nn.Linear.reset_parameters` drawn from `generator`, in place."""
+    nn.init.kaiming_uniform_(layer.weight, a=math.sqrt(5), generator=generator)
+    if layer.bias is not None:
+        _default_bias_(layer.bias, layer.weight, generator)
+    return layer

@@ -1,5 +1,5 @@
-"""Bottleneck ResNet-50/101/152 assessors, eval-mode forward (counterpart of
-`gan_discovery_pso_tpu/models/resnet.py:38-150`).
+"""Bottleneck ResNet-50/101/152 assessors (counterpart of
+`gan_discovery_pso_tpu/models/resnet.py:38-160`).
 
 Reference src/pso/util_cnn.py:81-190, quirks kept:
 - the pooling head is a global MAX pool (`AdaptiveMaxPool2d((1, 1))`,
@@ -11,20 +11,26 @@ Reference src/pso/util_cnn.py:81-190, quirks kept:
 Submodules carry the reference's state-dict names (`conv1`, `bn1`,
 `layerX.Y.convZ`/`bnZ`, `layerX.Y.identity_downsample.{0,1}`, `fc`), so a
 reference checkpoint and `compat/weights.py` output load with `strict=True`.
-The forward always uses the BN running statistics.
+The forward follows the module's mode: in eval mode BN normalises with the
+running statistics, in train mode with the batch's and updates the running
+ones (`ops.batch_norm_train`, torch's semantics). `change_classifier_head`
+re-heads a trained assessor for transfer (the pso-inverter's binary
+fine-tune).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
-from gan_discovery_pso_tpu_torch.models.layers import linear
+from gan_discovery_pso_tpu_torch.models.layers import linear, torch_default_linear_
 from gan_discovery_pso_tpu_torch.ops import (
     adaptive_max_pool2d,
     batch_norm_eval,
+    batch_norm_train,
     conv2d,
     max_pool2d,
 )
@@ -50,7 +56,8 @@ class ResNetDef(NamedTuple):
 
 def _conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     h = conv2d(x, conv.weight, None, conv.stride, conv.padding)
-    return batch_norm_eval(h, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+    norm = batch_norm_train if bn.training else batch_norm_eval
+    return norm(h, bn.weight, bn.bias, bn.running_mean, bn.running_var, eps=bn.eps)
 
 
 class Bottleneck(nn.Module):
@@ -107,3 +114,16 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, C, H, W] → logits [N, n_class]."""
         return linear(self.features(x), self.fc.weight, self.fc.bias)
+
+
+def change_classifier_head(model: ResNet, n_class: int, generator: torch.Generator) -> ResNet:
+    """A copy of `model` with a new Linear(2048, n_class) head, initialised
+    as torch does by default, drawn from `generator` (on the CPU, so the
+    head does not depend on the device) — the reference's
+    `change_classifier_n_class` (src/pso/util_pso_inverter.py:10-12). The
+    trunk's weights and BN statistics are copied; `model` is left as it
+    is."""
+    out = copy.deepcopy(model)
+    fc = torch_default_linear_(nn.Linear(512 * _EXPANSION, n_class), generator)
+    out.fc = fc.to(model.fc.weight.device, model.fc.weight.dtype)
+    return out

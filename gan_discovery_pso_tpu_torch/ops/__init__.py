@@ -1,12 +1,14 @@
 from gan_discovery_pso_tpu_torch.ops.conv import conv2d, conv_transpose2d
-from gan_discovery_pso_tpu_torch.ops.norm import batch_norm_eval
+from gan_discovery_pso_tpu_torch.ops.norm import batch_norm_eval, batch_norm_train
 from gan_discovery_pso_tpu_torch.ops.pool import adaptive_max_pool2d, max_pool2d
 from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
-from gan_discovery_pso_tpu_torch.ops.rescale import rescale01_per_sample
+from gan_discovery_pso_tpu_torch.ops.rescale import adjust_dynamic_range, rescale01_per_sample
 
 __all__ = [
     "adaptive_max_pool2d",
+    "adjust_dynamic_range",
     "batch_norm_eval",
+    "batch_norm_train",
     "cast_model",
     "conv2d",
     "conv_transpose2d",

@@ -1,9 +1,13 @@
-"""Eval-mode BatchNorm (counterpart of `gan_discovery_pso_tpu/ops/norm.py:76`).
+"""BatchNorm with torch's train and eval semantics (counterpart of
+`gan_discovery_pso_tpu/ops/norm.py:35-90`).
 
-Normalises with the running statistics only, eps 1e-5, as torch's
-`nn.BatchNorm2d` in eval mode. Parameters and statistics are used in x's
-dtype, which the convs keep at fp32 (`ops/conv.py`), as JAX's type promotion
-does for bf16 parameters. Train mode belongs to the training path.
+- eval: normalise with the running statistics only, eps 1e-5;
+- train: normalise with the batch's *biased* variance, and update the
+  running statistics with the *unbiased* one, momentum 0.1 weighting the new
+  batch (`running ← 0.9·running + 0.1·batch`), as `nn.BatchNorm2d` does.
+
+Parameters and statistics are used in x's dtype, which the convs keep at
+fp32 (`ops/conv.py`), as JAX's type promotion does for bf16 parameters.
 """
 
 from __future__ import annotations
@@ -19,3 +23,14 @@ def batch_norm_eval(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     t = x.dtype
     return F.batch_norm(x, running_mean.to(t), running_var.to(t), scale.to(t),
                         bias.to(t), training=False, eps=eps)
+
+
+def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor,
+                     momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+    """Train-mode BN over NCHW: the batch statistics normalise, and the
+    running statistics are updated IN PLACE (the JAX version returns new
+    ones; a module's buffers are its state here). Differentiable in x, scale
+    and bias."""
+    return F.batch_norm(x, running_mean, running_var, scale, bias, training=True,
+                        momentum=momentum, eps=eps)

@@ -1,5 +1,5 @@
-"""Per-sample min-max rescale (counterpart of
-`gan_discovery_pso_tpu/ops/rescale.py:30`).
+"""Per-sample min-max rescale and the dynamic-range map (counterpart of
+`gan_discovery_pso_tpu/ops/rescale.py:30,44`).
 
 The discovery fitness rescales each generated image to [0, 1] by its own
 min and max. This is the plain version; the fitness path calls the kernel
@@ -9,6 +9,7 @@ arithmetic on the CPU and launches the CUDA kernel on the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,16 @@ def rescale01_per_sample(imgs: torch.Tensor) -> torch.Tensor:
     mn = torch.amin(imgs, dim=dims, keepdim=True)
     mx = torch.amax(imgs, dim=dims, keepdim=True)
     return torch.clamp((imgs - mn) / (mx - mn), 0.0, 1.0)
+
+
+def adjust_dynamic_range(data, drange_in, drange_out):
+    """Affine drange map (reference src/utils/util_data.py:116-121), scale
+    and bias in fp32 as the JAX package computes them; `data` is a numpy
+    array or a tensor, returned as it came when the ranges agree."""
+    if tuple(drange_in) == tuple(drange_out):
+        return data
+    f32 = np.float32
+    scale = (f32(drange_out[1]) - f32(drange_out[0])) / (f32(drange_in[1]) - f32(drange_in[0]))
+    bias = f32(drange_out[0]) - f32(drange_in[0]) * scale
+    # python floats of fp32 values: an fp32 array or tensor stays fp32
+    return data * float(scale) + float(bias)

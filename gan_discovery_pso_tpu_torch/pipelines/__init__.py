@@ -5,15 +5,25 @@ from gan_discovery_pso_tpu_torch.pipelines.pso_discovery import (
     run_pso_discovery,
     run_pso_discovery_batched,
 )
-from gan_discovery_pso_tpu_torch.pipelines.stages import assessor_factory, load_cnn, load_gan
+from gan_discovery_pso_tpu_torch.pipelines.stages import (
+    assessor_factory,
+    load_cnn,
+    load_encoder,
+    load_gan,
+    run_extractor,
+    run_pso_inverter,
+)
 
 __all__ = [
     "StageContext",
     "assessor_factory",
     "emit_swarm_reports",
     "load_cnn",
+    "load_encoder",
     "load_gan",
     "render_swarm_grids",
+    "run_extractor",
     "run_pso_discovery",
     "run_pso_discovery_batched",
+    "run_pso_inverter",
 ]

@@ -1,6 +1,6 @@
-"""Discovery fitness: particle positions → objective, batched over every
-particle of every swarm (counterpart of
-`gan_discovery_pso_tpu/pso/fitness.py:35-96,169-196`).
+"""Discovery and hybrid-inversion fitness: particle positions → objective,
+batched over every particle of every swarm (counterpart of
+`gan_discovery_pso_tpu/pso/fitness.py:35-96,132-196`).
 
 Reference src/pso/util_discovery.py:33-82:
 - positions [M, d] reshape to latents [M, d, 1, 1];
@@ -9,6 +9,11 @@ Reference src/pso/util_discovery.py:33-82:
   per row, so one batch holds every class's swarm), binary nets column 1;
 - 'optimize_in_training'  → min(p + thr, 1) + eps,
   'optimize_out_training' → 1 − min(p + thr, 1) + eps.
+
+The pso-inverter's hybrid fitness (reference util_discovery.py:84-101)
+adds w_rec · MSE(source slice, RAW generator output in [−1, 1]) to w_ass ·
+the assessor term, then eps a second time: values lie in
+[2·eps, 1 + 2·eps + 4·w_rec] for w_ass = 1.
 """
 
 from __future__ import annotations
@@ -99,5 +104,55 @@ def make_discovery_fitness_dynamic(
             return apply_discovery_fitness(pos, gen, cnn, class_idx, control=control,
                                            threshold=threshold, eps=eps, dtype=dtype,
                                            return_images=return_images)
+
+    return fitness
+
+
+def inverter_fitness(
+    positions: torch.Tensor,
+    gen_model: nn.Module,
+    assessor: nn.Module,
+    source_images: torch.Tensor,
+    class_idx,
+    control: str = OPTIMIZE_IN,
+    threshold: float = 0.0,
+    eps: float = 0.1,
+    w_ass: float = 1.0,
+    w_rec: float = 1.0,
+    dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """positions [M, d] → hybrid fitness [M]; particle i owns source image
+    i of source_images [M, C, H, W] in [−1, 1] (the encoder-seeded init)."""
+    vals, (_img01, img) = apply_discovery_fitness(
+        positions, gen_model, assessor, class_idx, control=control, threshold=threshold,
+        eps=eps, dtype=dtype, return_images=True)
+    # against the raw G output, not the rescaled image (util_discovery.py:96-98)
+    f_rec = w_rec * torch.mean((source_images.float() - img.float()) ** 2, dim=(1, 2, 3))
+    # the reference adds eps a second time on the combined value (:101)
+    return w_ass * vals + f_rec + eps
+
+
+def make_inverter_fitness(
+    gen_model: nn.Module,
+    assessor: nn.Module,
+    source_images,
+    class_idx: int,
+    control: str = OPTIMIZE_IN,
+    threshold: float = 0.0,
+    eps: float = 0.1,
+    w_ass: float = 1.0,
+    w_rec: float = 1.0,
+) -> Callable:
+    """The hybrid fitness as fitness(positions [M, d]) → [M] on the models'
+    device, in fp32 parity (JAX `:132`). positions and source_images may be
+    numpy arrays."""
+    device = next(gen_model.parameters()).device
+    src = torch.as_tensor(source_images, dtype=torch.float32, device=device)
+
+    def fitness(positions):
+        pos = torch.as_tensor(positions, dtype=torch.float32, device=device)
+        with fp32_parity(), torch.inference_mode():
+            return inverter_fitness(pos, gen_model, assessor, src, class_idx, control=control,
+                                    threshold=threshold, eps=eps, w_ass=w_ass, w_rec=w_rec)
 
     return fitness

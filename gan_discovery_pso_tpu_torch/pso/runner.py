@@ -1,5 +1,5 @@
-"""Discovery runners: every class's swarm in one batch (counterpart of
-`gan_discovery_pso_tpu/pso/runner.py:26-174`).
+"""Discovery runners, every class's swarm in one batch, and the pso-inverter's
+runner (counterpart of `gan_discovery_pso_tpu/pso/runner.py:26-174,281`).
 
 The JAX package vmaps `optimize` over a class axis (and an optional `stack`
 axis of independent sweeps) inside one jitted program. Here both axes fold
@@ -19,6 +19,10 @@ a TPU (HBM streaming); on the card it only sets how many particles one
 forward takes, and chunked fitness gives the values of the whole one.
 `select_program` checks the `trainer_pso.program` key, which chooses
 nothing here.
+
+`make_inverter_runner` moves one encoder-seeded swarm (B = 1) on the same
+`optimize`, with the hybrid fitness: each iteration launches the rescale
+and the swarm-update kernel once, as discovery does.
 """
 
 from __future__ import annotations
@@ -31,12 +35,18 @@ from torch import nn
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig
 from gan_discovery_pso_tpu_torch.core.device import resolve_device
 from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
-from gan_discovery_pso_tpu_torch.pso.fitness import OPTIMIZE_OUT, apply_discovery_fitness
+from gan_discovery_pso_tpu_torch.pso.fitness import (
+    OPTIMIZE_IN,
+    OPTIMIZE_OUT,
+    apply_discovery_fitness,
+    inverter_fitness,
+)
 from gan_discovery_pso_tpu_torch.pso.swarm import (
     SwarmState,
     draw_uniforms,
     optimize,
     swarm_init,
+    swarm_init_from_positions,
 )
 
 
@@ -160,5 +170,62 @@ def make_discovery_runner(
 
     def run(gen_model, assessor, class_idx: int, **draws):
         return batched(gen_model, assessor, [class_idx], **draws)
+
+    return run
+
+
+def make_inverter_runner(
+    hp: PsoConfig,
+    control: str = OPTIMIZE_IN,
+    threshold: float = 0.0,
+    eps: float = 0.1,
+    w_ass: float = 1.0,
+    w_rec: float = 1.0,
+    dtype: torch.dtype | None = None,
+    device=None,
+):
+    """The hybrid-inversion runner (JAX `:281`):
+
+        run(gen_model, assessor, class_idx, source_images [N, C, H, W],
+            init_positions [N, d], *, rng=None, init_state=None, r1=None,
+            r2=None) → (final, history, init)
+
+    one swarm (B = 1) whose particle i starts at init_positions[i] and is
+    scored against source_images[i]. The draws are `init_state` (velocities
+    included) and r1, r2 [iters, 1, N]; what is not given is drawn from
+    `rng`, a `torch.Generator` on the runner's device. dtype=torch.bfloat16
+    runs the forwards on bf16 copies of the models; the default runs them
+    in fp32 parity. The models are arguments, so one runner serves every
+    patient's fine-tuned assessor."""
+    device = resolve_device(device)
+
+    def run(gen_model: nn.Module, assessor: nn.Module, class_idx: int, source_images,
+            init_positions, *, rng: torch.Generator | None = None,
+            init_state: SwarmState | None = None, r1: torch.Tensor | None = None,
+            r2: torch.Tensor | None = None):
+        _on_device(gen_model, device, "gen_model")
+        _on_device(assessor, device, "assessor")
+        if (init_state is None or r1 is None or r2 is None) and rng is None:
+            raise ValueError("pass rng, or init_state, r1 and r2")
+        src = torch.as_tensor(source_images, dtype=torch.float32, device=device)
+        if init_state is None:
+            pos = torch.as_tensor(init_positions, dtype=torch.float32, device=device)
+            init_state = swarm_init_from_positions(rng, pos[None], hp.w_inertia)
+        n = init_state.positions.shape[1]
+        if src.shape[0] != n:
+            raise ValueError(f"{src.shape[0]} source images for {n} particles")
+        if r1 is None or r2 is None:
+            r1, r2 = draw_uniforms(rng, hp.n_iterations, 1, n, device)
+        gen = cast_model(gen_model, dtype)
+        cnn = cast_model(assessor, dtype)
+
+        def fitness(positions):  # [1, N, d] → [1, N]
+            return inverter_fitness(positions[0], gen, cnn, src, class_idx, control=control,
+                                    threshold=threshold, eps=eps, w_ass=w_ass, w_rec=w_rec,
+                                    dtype=dtype)[None]
+
+        precision = fp32_parity() if dtype is None else contextlib.nullcontext()
+        with precision, torch.inference_mode():
+            return optimize(fitness, hp, init_state, r1.to(device), r2.to(device))
 
     return run

@@ -16,7 +16,9 @@ Reference semantics kept (reference src/pso/util_pso.py, SURVEY.md §3.1):
   |g[-1] − g[-2]| < tol (:186-188); a stopped swarm's state freezes and its
   history rows after the stop hold NaN diagnostics (the masked loop);
 - inertia w ← 0.99·w from iteration 2 when scheduled (:72-74, :178-179);
-- init: pos ~ N(0, 1)^d, vel = (N(0, 1) − 0.5)/10 (:30-31).
+- init: pos ~ N(0, 1)^d, vel = (N(0, 1) − 0.5)/10 (:30-31); the
+  pso-inverter's swarm starts from given (encoder) positions with random
+  velocities (`swarm_init_from_positions`, util_pso.py:93-112).
 
 Draws: torch cannot reproduce JAX's threefry streams, so the initial
 positions and velocities and each iteration's r1/r2 are inputs of
@@ -96,6 +98,18 @@ def swarm_init(rng: torch.Generator, n_swarms: int, n_particles: int,
     positions = torch.randn(shape, generator=rng, device=device)
     velocities = (torch.randn(shape, generator=rng, device=device) - 0.5) / 10.0
     return state_from_positions(positions, velocities, w_inertia)
+
+
+def swarm_init_from_positions(rng: torch.Generator | None, positions: torch.Tensor,
+                              w_inertia: float,
+                              velocities: torch.Tensor | None = None) -> SwarmState:
+    """Encoder-seeded init (JAX `:84`): the given positions [B, N, d] (one
+    per OoD slice), velocities (N(0, 1) − 0.5)/10 drawn from `rng` on the
+    positions' device, or the given ones (parity tests inject JAX's)."""
+    if velocities is None:
+        velocities = (torch.randn(positions.shape, generator=rng,
+                                  device=positions.device) - 0.5) / 10.0
+    return state_from_positions(positions, velocities.to(positions.device), w_inertia)
 
 
 def draw_uniforms(rng: torch.Generator, n_iterations: int, n_swarms: int,

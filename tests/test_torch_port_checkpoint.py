@@ -5,6 +5,7 @@ program/chunk rules, optimize_resumable, and the CLI's refusals. No JAX
 ResNet-50 compile in this file (the model.msgpack tree comes from the
 port's ResNet-50 through the inverse weight mapping)."""
 
+import dataclasses
 import json
 import pickle
 
@@ -337,10 +338,38 @@ def test_cli_refuses_shard_swarm(capsys):
     assert "ROADMAP A16" in capsys.readouterr().err
 
 
-def test_cli_refuses_limit(capsys):
-    """--limit caps dataset loads, which the port does not have yet."""
-    assert cli_main(["pso-discovery", "--tiny", "--limit", "96"]) != 0
-    assert "--limit" in (err := capsys.readouterr().err) and "ROADMAP A14" in err
+def test_cli_refuses_limit(capsys, tmp_path):
+    """--limit caps dataset loads; a negative cap is refused before a run
+    dir is made."""
+    roots = [f"data.{k}_dir={tmp_path / k}" for k in ("reports", "model", "interim")]
+    assert cli_main(["pso-discovery", "--tiny", "--limit", "-3", "--set", *roots]) != 0
+    assert "--limit -3" in capsys.readouterr().err
+    assert not (tmp_path / "reports").exists()
+
+
+@pytest.mark.parametrize("flags,cap", [(["--limit", "7"], 7), (["--tiny"], 512),
+                                       (["--tiny", "--limit", "9"], 9), ([], None)])
+def test_cli_limit_caps_the_dataset(flags, cap, monkeypatch, tmp_path):
+    """The stage context the CLI builds caps every dataset load at --limit,
+    or at 512 under --tiny (JAX `cli/main.py:84-85`)."""
+    import gan_discovery_pso_tpu_torch.cli.main as cli
+
+    seen = {}
+    real_ctx = cli._ctx
+
+    def ctx_spy(args, module):
+        seen["ctx"] = real_ctx(args, module)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(cli, "_ctx", ctx_spy)
+    roots = [f"data.{k}_dir={tmp_path / k}" for k in ("reports", "model", "interim")]
+    with pytest.raises(SystemExit):
+        cli_main(["iid-extract", "--device", "cpu", *flags, "--set", *roots])
+    ctx = seen["ctx"]
+    assert ctx.limit == cap
+    if cap is not None:
+        ctx.data_cfg = dataclasses.replace(ctx.data_cfg, data_dir=str(tmp_path / "none"))
+        assert ctx.dataset("test").images.shape[0] == cap  # of ~3200 IiD images
 
 
 def test_cli_without_device_raises_on_a_host_without_cuda(monkeypatch, tmp_path):
