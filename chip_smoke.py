@@ -24,7 +24,14 @@ seeded encoder f=64 z=100 beside G and the ResNet-50 as JAX-format
 checkpoints, a 1-epoch fine-tune of the re-headed binary assessor on the
 synthetic digits, 256 encoder-seeded particles x 50 iterations; the
 try-load rerun and the runner called directly bit-equal to it; bf16; 5
-fine-tune steps profiled), then times
+fine-tune steps profiled), runs the inverter and the two regularize stages
+through their CLI (the inverter training phase: 1-epoch pix_fea_rec_adv,
+pix_rec and AttGAN runs at the shipped widths on the same checkpoints, each
+encoder read back bit-equal; 5 steady steps of each kind profiled;
+regularize-inverter on 8 OoD images x 500 iterations with a bit-equal
+rerun; regularize-inverter-statistics on the pipeline phase's particles;
+one step of each kind and 10 invert iterations on the card against the
+CPU; no port kernel on these paths, 0 launches each), then times
 each kernel at the main path's shape and at a large one (device µs per
 launch from the profiler over the last 50 of 60 calls in a session, as
 the profiler loses the kernel events of a session's first calls; beside
@@ -47,6 +54,7 @@ import json
 import pickle
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -146,6 +154,22 @@ def bits_equal(a, b) -> float:
         diff = (a.float() - b.float()).abs().nan_to_num(0.0).max()
         raise AssertionError(f"{int((~same).sum())} entries differ, max |diff| {float(diff)}")
     return 0.0
+
+
+def zero_counts(kernels) -> None:
+    """Set every kernel's launch count to 0, the card idle first."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+
+
+def log_seconds(text: str, pattern: str) -> float:
+    """The number `pattern`'s group captures in the last matching line."""
+    import re
+
+    return float(re.findall(pattern, text)[-1])
 
 
 def build_models(device):
@@ -416,9 +440,7 @@ def drive_main_path(models, device, dtype, kernels, hp=None, classes=None, **dra
     classes = list(range(N_CLASSES)) if classes is None else classes
     run = make_batched_discovery_runner(hp, eps=EPS, dtype=dtype, device=device)
     rng = torch.Generator(device=device).manual_seed(SEED + 3)
-    torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
+    zero_counts(kernels)
     t0 = time.perf_counter()
     final, hist, _ = run(*models, classes, rng=rng, **draws)
     torch.cuda.synchronize()
@@ -469,17 +491,38 @@ def device_summary(prof, seconds: float) -> dict:
     }
 
 
-def profile_fine_tune(fine, ds, adam, steps: int = 5) -> dict:
-    """`steps` train steps of the pso-inverter's fine-tune (a copy of the
-    binary assessor, batches of 128 of `ds` in the stage's drange, fp32
-    parity) under torch.profiler, after 2 warm-up steps: per-step wall ms,
-    and the device summary over them."""
-    import copy
-
+def profile_steps(step, batches, warm_up: int = 2) -> dict:
+    """`step(*batch)` over `batches` in fp32 parity, the first `warm_up`
+    outside torch.profiler and the rest under it: per-step wall ms, and the
+    device summary over the profiled steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from gan_discovery_pso_tpu_torch.ops import fp32_parity
+
+    with fp32_parity():
+        for batch in batches[:warm_up]:
+            step(*batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in batches[warm_up:]:
+                step(*batch)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    steps = len(batches) - warm_up
+    return {"steps": steps, "wall_ms_per_step": seconds * 1e3 / steps,
+            **device_summary(prof, seconds)}
+
+
+def profile_fine_tune(fine, ds, adam, steps: int = 5) -> dict:
+    """`steps` train steps of the pso-inverter's fine-tune (a copy of the
+    binary assessor, batches of 128 of `ds` in the stage's drange, fp32
+    parity) under torch.profiler, after 2 warm-up steps."""
+    import copy
+
+    import torch
+
     from gan_discovery_pso_tpu_torch.train.cnn import EpochCounts, make_cnn_steps
     from gan_discovery_pso_tpu_torch.train.common import make_optimizer
 
@@ -488,18 +531,8 @@ def profile_fine_tune(fine, ds, adam, steps: int = 5) -> dict:
     idx = torch.arange(128 * (steps + 2), device=ds.images.device) % ds.images.shape[0]
     batches = [(ds.images[i], (ds.labels[i] == PATIENT).to(torch.int32))
                for i in idx.split(128)]
-    with fp32_parity():
-        for x, y in batches[:2]:
-            train_step(x, y, EpochCounts.zero(2, x.device))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for x, y in batches[2:]:
-                train_step(x, y, EpochCounts.zero(2, x.device))
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-    return {"steps": steps, "wall_ms_per_step": seconds * 1e3 / steps,
-            **device_summary(prof, seconds)}
+    return profile_steps(lambda x, y: train_step(x, y, EpochCounts.zero(2, x.device)),
+                         batches)
 
 
 def check_against_cpu(models, device, kernels) -> float:
@@ -580,9 +613,7 @@ def run_cli(tmp: Path, label: str, dirs: dict, device, kernels, *flags, sets=())
             "--path-cnn", str(dirs["cnn"]), "--device", str(device), *flags, "--set",
             f"data.reports_dir={roots['reports']}", f"data.model_dir={roots['models']}",
             f"data.interim_dir={roots['interim']}", *sets]
-    torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
+    zero_counts(kernels)
     t0 = time.perf_counter()
     rc = cli_main(argv)
     torch.cuda.synchronize()
@@ -703,12 +734,15 @@ def direct_runner(models, device, cfg_sets) -> tuple:
     return {str(c): batch.swarm(i) for i, c in enumerate(classes)}, seconds
 
 
-def pipeline_phase(models, device, kernels, card: str, after_step=None) -> dict:
+def pipeline_phase(models, device, kernels, card: str, after_step=None,
+                   keep_interim: Path | None = None) -> dict:
     """The pso-discovery stage through its CLI on JAX-format checkpoints of
     the seeded full-width models: batched fp32 (bit-equal to the runner
     called directly), sequential (B = 1 per class), the shipped dimension 2
     with its landscape, and bf16. Returns each run's launches.
-    `after_step(name)`, where given, is called after each step."""
+    `after_step(name)`, where given, is called after each step; the batched
+    fp32 run's interim dir is copied to `keep_interim`, where given."""
+    import shutil
     import tempfile
 
     import torch
@@ -757,6 +791,8 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None) -> dict:
                     and np.float32(batched["g_best"][c]) == res.g_best_val.numpy()[0]):
                 raise AssertionError(f"pipeline batched: class {c} differs from the runner")
         skipped = check_artifacts(batched, classes, DIM, hp_iters)
+        if keep_interim is not None:
+            shutil.copytree(batched["interim"], keep_interim)
 
         # 3. sequential, one B = 1 runner per class
         seq = run_cli(tmp, "sequential", dirs, device, kernels, sets=sets)
@@ -889,12 +925,7 @@ def inverter_phase(models, device, kernels, card: str, sets=()) -> dict:
 
     names = [k.__name__ for k in kernels]
     counts = lambda: {k.__name__: k.launches for k in kernels}  # noqa: E731
-
-    def zero():
-        torch.cuda.synchronize()
-        for k in kernels:
-            k.launches = 0
-
+    zero = lambda: zero_counts(kernels)  # noqa: E731
     out, timings = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_inv_") as tmp_name:
         tmp = Path(tmp_name)
@@ -1040,6 +1071,296 @@ def inverter_phase(models, device, kernels, card: str, sets=()) -> dict:
     return out
 
 
+def training_nets(device, models):
+    """(G, E, D, ResNet-50) at full width for the step checks, built on the
+    CPU from one seeded generator and moved to `device`: G and E with
+    torch's default init (a DCGAN-init G's images are flat in z, which
+    leaves E's gradients at rounding level), D with the DCGAN init, the
+    main path's ResNet-50."""
+    import copy
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.models import (
+        Discriminator, DiscriminatorDef, Encoder, EncoderDef, Generator, GeneratorDef,
+        dcgan_init_, torch_default_init_)
+
+    rng = torch.Generator().manual_seed(SEED + 7)
+    gen = torch_default_init_(Generator(GeneratorDef(DIM, 1, 64)), rng).eval()
+    enc = torch_default_init_(Encoder(EncoderDef(DIM, 1, 64)), rng)
+    disc = dcgan_init_(Discriminator(DiscriminatorDef(1, 64)), rng)
+    return tuple(m.to(device) for m in (gen, enc, disc, copy.deepcopy(models[1])))
+
+
+def step_results(nets, device, x, labels, adam, adam_d) -> dict:
+    """On `device`, from copies of `nets`: one pix_rec step, one
+    pix_fea_rec_adv step (R1 included) fed `labels`, and 10 invert
+    iterations, in fp32 parity; the losses, the updated weights and z on
+    the host."""
+    import copy
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.train.inverter import (
+        invert, make_pix_fea_rec_adv_step, make_pix_rec_step)
+
+    gen, enc, disc, cnn = (copy.deepcopy(m).to(device) for m in nets)
+    x = x.to(device)
+    host = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    out = {}
+    with fp32_parity():
+        e = copy.deepcopy(enc)
+        step, _ = make_pix_rec_step(gen, e, adam)
+        out["pix_rec"] = {"loss": step(x).cpu()}
+        out["pix_rec_E"] = host(e.state_dict())
+        e, d = copy.deepcopy(enc), copy.deepcopy(disc)
+        step, _ = make_pix_fea_rec_adv_step(gen, e, d, cnn, adam, adam_d)
+        out["adv"] = {k: v.cpu() for k, v in step(x, tuple(t.to(device) for t in labels)).items()}
+        out["adv_E"], out["adv_D"] = host(e.state_dict()), host(d.state_dict())
+        z, hist = invert(x[:8], gen, enc, iterations=9)
+        out["invert_z"], out["invert_hist"] = z.cpu(), hist
+    return out
+
+
+def compare_card_cpu(card: dict, cpu: dict) -> dict:
+    """Card against CPU: losses rtol 1e-4 (cuDNN and oneDNN sum fp32 convs
+    in other orders, as for the encoder); updated weights within 2e-6 at all
+    but 1 in 10^4 entries (Adam's first step is ±lr by the gradient's sign,
+    which flips where a gradient is at rounding level); invert's z rtol 1e-4
+    atol 1e-5 and its history rtol 1e-4. Returns the largest differences."""
+    import numpy as np
+    import torch
+
+    diffs = {}
+    for what in ("pix_rec", "adv"):
+        for k, v in card[what].items():
+            torch.testing.assert_close(v, cpu[what][k], rtol=1e-4, atol=1e-9, msg=f"{what} {k}")
+            diffs[f"{what}.{k}"] = float((v - cpu[what][k]).abs() / cpu[what][k].abs().clamp_min(1e-30))
+    for what in ("pix_rec_E", "adv_E", "adv_D"):
+        n = off = 0
+        worst = 0.0
+        for k, v in card[what].items():
+            d = (v.float() - cpu[what][k].float()).abs()
+            n, off, worst = n + d.numel(), off + int((d > 2e-6).sum()), max(worst, float(d.max()))
+        if off * 10 ** 4 > n:
+            raise AssertionError(f"card vs CPU: {what}: {off} of {n} entries differ by > 2e-6")
+        diffs[what] = {"max_abs": worst, "entries_over_2e-6": off, "entries": n}
+    torch.testing.assert_close(card["invert_z"], cpu["invert_z"], rtol=1e-4, atol=1e-5)
+    for k, v in card["invert_hist"].items():
+        np.testing.assert_allclose(v, cpu["invert_hist"][k], rtol=1e-4, err_msg=k)
+    diffs["invert_z_max_abs"] = float((card["invert_z"] - cpu["invert_z"]).abs().max())
+    return diffs
+
+
+def inverter_training_phase(models, device, kernels, card: str, pso_interim: Path,
+                            sets=(), flags=()) -> dict:
+    """The inverter and the two regularize stages through the CLI on
+    JAX-format checkpoints of the seeded full-width G and ResNet-50, on the
+    synthetic digits: a 1-epoch pix_fea_rec_adv run (finite losses, its
+    `encoder.msgpack` read back bit-equal), 1-epoch pix_rec runs with the
+    plain and the AttGAN encoder (the AttGAN checkpoint refused by
+    `load_encoder`), 5 steady steps of each kind profiled, regularize-
+    inverter on the adversarial run's encoder (8 OoD images, 500
+    iterations: the loss falls, the artifacts, a bit-equal rerun; 20
+    inversion steps profiled) and regularize-inverter-statistics on
+    `pso_interim` (the pipeline phase's
+    batched fp32 particles), then one step of each kind and 10 invert
+    iterations on the card against the CPU. No port kernel runs here: every
+    run must count 0 launches. Returns each run's launches. `sets` and
+    `flags` add config overrides and CLI flags (a rehearsal on the CPU cuts
+    the data)."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch import pipelines
+    from gan_discovery_pso_tpu_torch.analysis.reporting import host_has
+    from gan_discovery_pso_tpu_torch.cli.main import main as cli_main
+    from gan_discovery_pso_tpu_torch.compat import encoder_attgan_state_dict, to_tensors
+    from gan_discovery_pso_tpu_torch.core import AdamConfig, load_config
+    from gan_discovery_pso_tpu_torch.core.checkpoint import load_pytree, restore_tree
+    from gan_discovery_pso_tpu_torch.data import load_mnist
+    from gan_discovery_pso_tpu_torch.models import (
+        Discriminator, DiscriminatorDef, EncoderAttGAN, EncoderAttGANDef, dcgan_init_)
+    from gan_discovery_pso_tpu_torch.train.inverter import (
+        invert, make_pix_fea_rec_adv_step, make_pix_rec_step)
+
+    t_phase = time.perf_counter()
+    out, report = {}, {}
+    kept = {}
+    real_run_inverter = pipelines.run_inverter
+
+    def keep(*a, **kw):
+        kept["encoder"], kept["history"] = real_run_inverter(*a, **kw)
+        return kept["encoder"], kept["history"]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_invtrain_") as tmp_name:
+        tmp = Path(tmp_name)
+        dirs = write_checkpoints(tmp / "upstream", 1, *models)
+        overrides = {"trainer_gan.z_dim": DIM, "data.data_dir": str(tmp / "no_mnist"),
+                     **dict(sets)}
+        gan = ["--path-gan", str(dirs["gan"])]
+
+        def run(label: str, stage: str, *args, **extra) -> dict:
+            roots = {k: tmp / label / k for k in ("reports", "model", "interim")}
+            cfg_sets = {**overrides, **extra, **{f"data.{k}_dir": v for k, v in roots.items()}}
+            argv = [stage, "--cfg", str(CFG), "--device", str(device), *flags, *args, "--set",
+                    *(f"{k}={v}" for k, v in cfg_sets.items())]
+            kept.clear()
+            zero_counts(kernels)
+            pipelines.run_inverter = keep
+            try:
+                t0 = time.perf_counter()
+                rc = cli_main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                pipelines.run_inverter = real_run_inverter
+            launches = {k.__name__: k.launches for k in kernels}
+            out[label] = launches
+            if rc != 0:
+                raise AssertionError(f"{label}: the CLI returned {rc}")
+            if any(launches.values()):
+                raise AssertionError(f"{label}: launches {launches}; no port kernel is on "
+                                     "this stage's path")
+            run_dirs = {k: v / "mnist" / f"00001--{stage.replace('-', '_')}"
+                        for k, v in roots.items()}
+            with open(run_dirs["reports"] / "general" / "overall_history.pkl", "rb") as f:
+                history = pickle.load(f)
+            bad = {k: v for k, v in history.items() if not np.isfinite(v).all()}
+            if bad:
+                raise AssertionError(f"{label}: losses not finite: {bad}")
+            return {"wall": wall, "history": history, "encoder": kept.get("encoder"),
+                    "log": (run_dirs["reports"] / "log.txt").read_text(), **run_dirs}
+
+        def epoch_numbers(r: dict) -> dict:
+            return {"stage_s": r["wall"],
+                    "data_s": log_seconds(r["log"], r"\[inverter\] data ([0-9.]+)s"),
+                    "train_steps": int(log_seconds(r["log"], r"epoch 0: ([0-9]+) train steps")),
+                    "train_s": log_seconds(r["log"], r"train steps ([0-9.]+)s"),
+                    "eval_s": log_seconds(r["log"], r", eval ([0-9.]+)s"),
+                    "visuals_s": log_seconds(r["log"], r"visuals ([0-9.]+)s")}
+
+        # 1. the adversarial inverter, 1 epoch
+        adv = run("inverter_adv", "inverter", "--epochs", "1", *gan, "--path-cnn",
+                  str(dirs["cnn"]), **{"trainer_inverter.training_function": "pix_fea_rec_adv"})
+        check_loaded(adv["encoder"], pipelines.load_encoder(adv["model"], device=device),
+                     "encoder.msgpack (pix_fea_rec_adv)")
+        report["pix_fea_rec_adv"] = {**epoch_numbers(adv), "history": adv["history"]}
+
+        # 2. pix_rec with the plain and the AttGAN encoder, 1 epoch each
+        plain = run("inverter_pix_rec", "inverter", "--epochs", "1", *gan)
+        check_loaded(plain["encoder"], pipelines.load_encoder(plain["model"], device=device),
+                     "encoder.msgpack (pix_rec)")
+        report["pix_rec"] = {**epoch_numbers(plain), "history": plain["history"]}
+        attgan = run("inverter_attgan", "inverter", "--epochs", "1", *gan,
+                     **{"model_inverter.encoder_variant": "attgan"})
+        saved = restore_tree(load_pytree(attgan["model"] / "encoder.msgpack"))
+        if saved.get("variant") not in ("attgan", b"attgan"):
+            raise AssertionError(f"AttGAN checkpoint variant {saved.get('variant')!r}")
+        built = EncoderAttGAN(EncoderAttGANDef(DIM), device=device)
+        built.load_state_dict(to_tensors(encoder_attgan_state_dict(
+            saved["params"], saved["state"]), device=device))
+        check_loaded(attgan["encoder"], built, "encoder.msgpack (AttGAN)")
+        try:
+            pipelines.load_encoder(attgan["model"], device=device)
+            raise AssertionError("load_encoder read an AttGAN checkpoint")
+        except ValueError as e:
+            if "AttGAN" not in str(e):
+                raise
+        report["attgan_pix_rec"] = {**epoch_numbers(attgan), "history": attgan["history"]}
+        log(f"inverter training: 1-epoch runs, losses finite, each encoder.msgpack read "
+            f"back bit-equal, the AttGAN one refused by load_encoder ({card}): "
+            + json.dumps(report))
+
+        # 3. where a step's time goes: 5 steady steps of each kind profiled
+        cfg = load_config(CFG, overrides=overrides)
+        adam = AdamConfig.from_config(cfg.trainer_inverter.encoder_optimizer)
+        adam_d = AdamConfig.from_config(cfg.trainer_inverter.discriminator_optimizer)
+        bs = int(cfg.trainer_inverter.batch_size)
+        iid = load_mnist(tmp / "no_mnist", "train", classes=tuple(cfg.data.iid_classes),
+                         drange=(-1, 1), device=device).images
+        batches = [iid[i * bs:(i + 1) * bs] for i in range(7)]
+        rng = torch.Generator().manual_seed(SEED + 8)
+        draws = [(0.7 + 0.5 * torch.rand(bs, generator=rng), 0.3 * torch.rand(bs, generator=rng))
+                 for _ in batches]
+        disc = dcgan_init_(Discriminator(DiscriminatorDef(1, 64)),
+                           torch.Generator().manual_seed(SEED + 9)).to(device)
+        gen, cnn = models
+        step, _ = make_pix_fea_rec_adv_step(gen, copy.deepcopy(adv["encoder"]), disc, cnn,
+                                            adam, adam_d)
+        prof_adv = profile_steps(step, [(x, tuple(t.to(device) for t in d))
+                                        for x, d in zip(batches, draws)])
+        step, _ = make_pix_rec_step(gen, copy.deepcopy(plain["encoder"]), adam)
+        prof_rec = profile_steps(step, [(x,) for x in batches])
+        log(f"inverter pix_fea_rec_adv steps profiled (batch {bs}, {card}): "
+            + json.dumps(prof_adv))
+        log(f"inverter pix_rec steps profiled (batch {bs}, {card}): " + json.dumps(prof_rec))
+
+        # 4. regularize-inverter on the adversarial run's encoder, and again
+        enc_dir = ["--path-inverter", str(adv["model"])]
+        reg = run("regularize", "regularize-inverter", *gan, *enc_dir)
+        again = run("regularize_rerun", "regularize-inverter", *gan, *enc_dir)
+        loss = reg["history"]["loss"]
+        if not loss[-1] < loss[0] or len(loss) != 501:
+            raise AssertionError(f"regularize-inverter: {len(loss)} steps, loss {loss[0]} -> "
+                                 f"{loss[-1]}")
+        files = [reg["interim"] / "inverted_z.npz"]
+        if host_has("pandas"):
+            files.append(reg["interim"] / "particles_position_ood.pkl")
+        if host_has("PIL"):
+            files += [reg["reports"] / "general" / f"{n}.png" for n in ("ori", "enc", "inv")]
+        missing = [str(f) for f in files if not f.exists()]
+        if missing:
+            raise AssertionError(f"regularize-inverter: missing {missing}")
+        with np.load(reg["interim"] / "inverted_z.npz") as a, \
+                np.load(again["interim"] / "inverted_z.npz") as b:
+            if a["z"].shape != (8, DIM, 1, 1) or not np.array_equal(a["z"], b["z"]):
+                raise AssertionError("regularize-inverter: the rerun's z differs")
+        if not all(np.array_equal(v, again["history"][k]) for k, v in reg["history"].items()):
+            raise AssertionError("regularize-inverter: the rerun's history differs")
+        report_reg = {"stage_s": [reg["wall"], again["wall"]],
+                      "it_per_s": [log_seconds(r["log"], r"\(([0-9.]+) it/s\)")
+                                   for r in (reg, again)],
+                      "loss": [float(loss[0]), float(loss[-1])]}
+        # where an inversion step's time goes: 20 steps of the stage's call
+        # under the profiler, after two warm-up calls
+        ood = load_mnist(tmp / "no_mnist", "test", classes=tuple(cfg.data.ood_classes),
+                         drange=(-1, 1), device=device).images[:8]
+        enc = pipelines.load_encoder(adv["model"], device=device)
+        prof_inv = profile_steps(lambda x: invert(x, gen, enc, iterations=19), [(ood,)] * 3)
+        log(f"invert steps profiled (8 images x 20 steps in one call, {card}): "
+            + json.dumps(prof_inv))
+
+        # 5. regularize-inverter-statistics on the pipeline phase's particles
+        stats = run("statistics", "regularize-inverter-statistics", *gan, *enc_dir,
+                    "--path-pso", str(pso_interim))
+        with np.load(stats["interim"] / "inverted_bn_z.npz") as a:
+            w = a["weights"]
+            if a["z"].shape != (8, DIM, 1, 1) or w.shape != (8, len(cfg.data.iid_classes)):
+                raise AssertionError(f"statistics: z {a['z'].shape}, w {w.shape}")
+        sloss = stats["history"]["loss"]
+        report_stats = {"stage_s": stats["wall"],
+                        "it_per_s": log_seconds(stats["log"], r"\(([0-9.]+) it/s\)"),
+                        "loss": [float(sloss[0]), float(sloss[-1])], "w": w.tolist()}
+        log(f"regularize-inverter: 8 images x 501 steps, loss falls, artifacts written, the "
+            f"rerun bit-equal ({card}): {json.dumps(report_reg)}")
+        log(f"regularize-inverter-statistics ({card}): {json.dumps(report_stats)}")
+
+        # 6. one step of each kind and 10 invert iterations, card against CPU
+        nets = training_nets(device, models)
+        x = iid[:32]
+        labels = (0.7 + 0.5 * torch.rand(32, generator=rng), 0.3 * torch.rand(32, generator=rng))
+        on_card = step_results(nets, device, x, labels, adam, adam_d)
+        on_cpu = step_results(nets, torch.device("cpu"), x, labels, adam, adam_d)
+        diffs = compare_card_cpu(on_card, on_cpu)
+        log("inverter card vs CPU (batch 32, full width): " + json.dumps(diffs))
+    log(f"inverter training phase: {time.perf_counter() - t_phase:.6f} s ({card})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1099,8 +1420,13 @@ def main() -> int:
         raise AssertionError(f"bf16 gate: max |g32 - g16| = {gate} > {GATE}")
     log(f"fp32 runs identical; bf16 gate max |g32 - g16| = {gate:.3e} <= {GATE}")
     log(f"evals/s warm: fp32 {evals / s32:.0f}, bf16 {evals / s16:.0f} ({card})")
-    pipeline_launches = pipeline_phase(models, device, KERNELS, card)
-    pipeline_launches.update(inverter_phase(models, device, KERNELS, card))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pso_") as keep:
+        pso_interim = Path(keep) / "batched"
+        pipeline_launches = pipeline_phase(models, device, KERNELS, card,
+                                           keep_interim=pso_interim)
+        pipeline_launches.update(inverter_phase(models, device, KERNELS, card))
+        pipeline_launches.update(inverter_training_phase(models, device, KERNELS, card,
+                                                         pso_interim))
     prof = profile_main_path(models, device, KERNELS)
     log("profile fp32 main path: " + json.dumps(prof))
     log("profile bf16 main path: "

@@ -11,19 +11,21 @@ neither it nor JAX. Module paths mirror the JAX package's:
   map, the precision modes, and `ops/kernels/` — the hand-written CUDA
   kernels (`csrc/*.cu`) that replace the JAX package's two Pallas TPU
   kernels, each beside its plain version;
-- `models/`: the DCGAN generator, the plain encoder and the ResNet
-  assessors as `nn.Module`s;
+- `models/`: the DCGAN generator and discriminator, the plain and AttGAN
+  encoders and the ResNet assessors as `nn.Module`s;
 - `data/`: MNIST idx files or the synthetic digits, as tensors on the
   stage's device;
-- `train/`: the optimizers and the assessor's training loop;
+- `train/`: the optimizers, the GAN losses, the assessor's training loop,
+  and the inverter's training steps and gradient inversions;
 - `pso/`: discovery and hybrid-inversion fitness, swarm, the batched
   discovery runner (the main path), the inverter runner, and the particle
   artifacts (`io.py`);
 - `compat/weights.py`: JAX parameter trees and reference checkpoints into
   the port's state dicts, and back;
 - `pipelines/`, `analysis/reporting.py`, `cli/`: the `pso-discovery`,
-  `pso-inverter`, `iid-extract` and `ood-extract` stages, their report
-  writers and their command line
+  `pso-inverter`, `iid-extract`, `ood-extract`, `inverter`,
+  `regularize-inverter` and `regularize-inverter-statistics` stages, their
+  report writers and their command line
   (`python -m gan_discovery_pso_tpu_torch.cli <stage>`).
 """
 

@@ -5,7 +5,10 @@ scatters, the 2-D fitness landscape, GIFs and image grids (counterpart of
 `plot_fitness_landscape_2d` :116, `make_gif` :142, `plot_mean_mse` :418,
 `plot_particles_last_iteration` :431, `grid_canvas` :470,
 `save_image_grid` :491, `superimage` :513, `plot_digits` :624,
-`plot_cnn_training` :647).
+`plot_cnn_training` :647) and of the inverter stages
+(`plot_training_curves` :160, `save_grayscale` :244,
+`plot_regularize_inverter_losses` :274, `plot_phase_losses` :677,
+`recon_panel` :709).
 
 matplotlib and PIL are imported inside the writers, so the package imports
 on a host that lacks them; the stage asks `host_has` before it calls a
@@ -306,3 +309,103 @@ def plot_cnn_training(history: dict, out_dir, label=None):
         plt.close(fig)
         paths.append(p)
     return paths
+
+
+def plot_training_curves(history: dict, out_path, title="training"):
+    """Loss curves from a dict of lists, one line per numeric series
+    (reference util_report.py:143-225 / util_report_gan.py)."""
+    plt = _plt()
+    fig, ax = plt.subplots()
+    for k, v in history.items():
+        v = [x for x in v if x is not None]
+        if v and all(isinstance(x, (int, float, np.floating)) for x in v):
+            ax.plot(v, label=k)
+    ax.set_xlabel("epoch/step")
+    ax.legend(fontsize=7)
+    ax.set_title(title)
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def save_grayscale(out_path, image):
+    """A 2-D uint8 image → PNG (PIL), the reference's cv2 `save_image`
+    (util_report_inverter.py:87-98)."""
+    from PIL import Image
+
+    arr = np.asarray(image)
+    if arr.ndim != 2:
+        raise ValueError(f"expected a 2-D grayscale image, got {arr.shape}")
+    Image.fromarray(arr.astype(np.uint8), mode="L").save(out_path)
+    return Path(out_path)
+
+
+def plot_regularize_inverter_losses(history: dict, out_path):
+    """loss_pix / loss_reg / loss of a gradient inversion on one figure
+    (reference util_report_inverter.py:76-84)."""
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(8, 6))
+    for c, color in zip(("loss_pix", "loss_reg", "loss"), ("r", "b", "g")):
+        if history.get(c) is not None:
+            ax.plot(np.asarray(history[c]), label=c, color=color)
+    ax.set_title("Optimization losses")
+    ax.set_xlabel("Iterations")
+    ax.set_ylabel("Losses")
+    ax.legend()
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_phase_losses(history: dict, out_dir, phase: str):
+    """The adversarial inverter's `{phase}_G_losses.png` (encoder total,
+    adv, rec_pix, rec_fea) and `{phase}_D_losses.png` (discriminator total,
+    adv, R1) (reference util_report_inverter.py:41-74); a figure with fewer
+    than two of its series in `history` is skipped."""
+    plt = _plt()
+    out_dir = Path(out_dir)
+    paths = []
+    for name, keys, colors in (
+        ("G_losses", (f"{phase}_loss_enc", f"{phase}_loss_enc_adv",
+                      f"{phase}_loss_enc_rec_pix", f"{phase}_loss_enc_rec_fea"),
+         ("r", "b", "g", "m")),
+        ("D_losses", (f"{phase}_loss_disc", f"{phase}_loss_disc_adv",
+                      f"{phase}_loss_disc_r1penalty"), ("r", "b", "g")),
+    ):
+        present = [(k, c) for k, c in zip(keys, colors) if history.get(k)]
+        if len(present) < 2:
+            continue
+        fig, ax = plt.subplots(figsize=(8, 6))
+        for k, c in present:
+            ax.plot(history[k], label=k, color=c)
+        ax.set_title(f"{phase} {'G' if name == 'G_losses' else 'D'} losses")
+        ax.set_xlabel("Epochs")
+        ax.set_ylabel("Losses")
+        ax.legend()
+        p = out_dir / f"{phase}_{name}.png"
+        _savefig(fig, p, 200)
+        plt.close(fig)
+        paths.append(p)
+    return paths
+
+
+def recon_panel(originals, reconstructions, out_path, n_img: int = 10):
+    """Originals over their reconstructions, a 2 x n panel (reference
+    show_images, utils_vq_vae/util_report.py:91-115)."""
+    plt = _plt()
+    originals = np.asarray(originals)[:n_img]
+    reconstructions = np.asarray(reconstructions)[:n_img]
+    n = len(originals)
+    fig = plt.figure(figsize=(9, 2))
+    for i in range(n):
+        for row, imgs, title in ((0, originals, "Original images"),
+                                 (1, reconstructions, "Reconstructed images")):
+            ax = fig.add_subplot(2, n, row * n + i + 1)
+            ax.imshow(imgs[i].squeeze(), cmap="gist_gray")
+            ax.get_xaxis().set_visible(False)
+            ax.get_yaxis().set_visible(False)
+            if i == n // 2:
+                ax.set_title(title)
+    _savefig(fig, out_path, 400)
+    plt.close(fig)
+    return Path(out_path)

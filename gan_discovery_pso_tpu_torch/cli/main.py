@@ -1,8 +1,9 @@
 """Command-line entry point of the port (counterpart of
 `gan_discovery_pso_tpu/cli/main.py`: `_parse_set`, `_add_common`, `_TINY`,
 `_ctx`, `_epochs` :33-90, `_load_gan`/`_load_cnn` :271-290, and the
-`pso-discovery`, `iid-extract`/`ood-extract` and `pso-inverter` branches
-:371-397):
+`pso-discovery`, `inverter`, `iid-extract`/`ood-extract`, `pso-inverter`,
+`regularize-inverter` and `regularize-inverter-statistics` branches
+:371-414):
 
     python -m gan_discovery_pso_tpu_torch.cli pso-discovery \\
         --cfg configs/dcgan_mnist.yaml --path-gan DIR --path-cnn DIR \\
@@ -13,17 +14,27 @@
         [--ood-patient P] [--epochs E] [--fast-math] ...
     python -m gan_discovery_pso_tpu_torch.cli iid-extract|ood-extract \\
         --path-inverter DIR [--path-gan DIR] ...
+    python -m gan_discovery_pso_tpu_torch.cli inverter --path-gan DIR \\
+        [--path-cnn DIR] [--epochs E] ...
+    python -m gan_discovery_pso_tpu_torch.cli regularize-inverter \\
+        --path-gan DIR --path-inverter DIR ...
+    python -m gan_discovery_pso_tpu_torch.cli regularize-inverter-statistics \\
+        --path-gan DIR --path-inverter DIR --path-pso DIR ...
 
 `--path-gan`, `--path-cnn` and `--path-inverter` are the models dirs of the
 JAX package's (or a later port's) `dcgan`, `cnn-multipatient` and
 `inverter` runs: the port reads their flax-msgpack checkpoints. The stages
 run on the card; `--device cpu` is the port's counterpart of
 `JAX_PLATFORMS=cpu`. `--fast-math` runs the swarm's forwards in bf16 (the
-pso-inverter's fine-tune stays in fp32 parity). `--limit N` caps every
-dataset load at N images; `--tiny` caps at 512 unless --limit says
-otherwise, and gives a 1-epoch fine-tune unless --epochs does. Every other
-stage of the JAX CLI exits non-zero, naming the ROADMAP item that will port
-it.
+pso-inverter's fine-tune stays in fp32 parity); the inverter and the two
+regularize stages refuse it (exit 2, ROADMAP A18). `--path-cnn` is read by
+`inverter` only for `trainer_inverter.training_function=pix_fea_rec_adv`;
+`--path-pso` is the interim dir of a pso-discovery run. The regularize
+stages invert the first 8 OoD test images, 500 iterations (50 with
+`--tiny`). `--limit N` caps every dataset load at N images; `--tiny` caps
+at 512 unless --limit says otherwise, and gives 1 training epoch unless
+--epochs says otherwise. Every other stage of the JAX CLI exits non-zero,
+naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -37,13 +48,16 @@ import torch
 # ROADMAP item of each
 NOT_PORTED = {
     "cae": "A11", "classifiers": "A11", "dcgan": "A9", "cnn": "A10",
-    "cnn-multipatient": "A10", "inverter": "A12", "regularize-inverter": "A12",
-    "regularize-inverter-statistics": "A12", "vqvae": "A13", "pixelcnn-prior": "A13",
+    "cnn-multipatient": "A10", "vqvae": "A13", "pixelcnn-prior": "A13",
     "pso-analysis": "A15", "pso-analysis-clustering": "A15",
     "pso-analysis-distance": "A15", "pso-inverter-analysis": "A15",
     "claro-preprocess": "A14", "sweep": "A17", "export-model": "A17",
     "convert-torch": "A17", "export-torch": "A17",
 }
+INVERSION_STAGES = ("regularize-inverter", "regularize-inverter-statistics")
+# stages that train or optimise by gradients: the JAX package's --fast-math
+# there is TPU DEFAULT precision, whose card counterpart is not decided yet
+NO_FAST_MATH = ("inverter", *INVERSION_STAGES)
 
 
 def _parse_set(values):
@@ -131,14 +145,20 @@ def _load_cnn(args, ctx):
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="gan-discovery-pso-tpu-torch")
     sub = parser.add_subparsers(dest="stage", required=True)
-    for name in ("pso-discovery", "pso-inverter", "iid-extract", "ood-extract"):
+    for name in ("pso-discovery", "pso-inverter", "iid-extract", "ood-extract", "inverter",
+                 *INVERSION_STAGES):
         p = sub.add_parser(name)
         _add_common(p)
         p.add_argument("--path-gan", default=None, help="dcgan stage model dir")
-        if name != "pso-discovery":
+        if name not in ("pso-discovery", "inverter"):
             p.add_argument("--path-inverter", default=None, help="inverter stage model dir")
-        if name in ("pso-discovery", "pso-inverter"):
+        if name in ("pso-discovery", "pso-inverter", "inverter"):
             p.add_argument("--path-cnn", default=None, help="cnn stage model dir")
+        if name in ("pso-inverter", "inverter"):
+            p.add_argument("--epochs", type=int, default=None,
+                           help="training epochs (default: the stage's trainer_*.epochs)")
+        if name == "regularize-inverter-statistics":
+            p.add_argument("--path-pso", default=None, help="pso-discovery stage interim dir")
         if name == "pso-discovery":
             p.add_argument("--batch-classes", action="store_true",
                            help="advance all class swarms in one batch")
@@ -146,8 +166,6 @@ def _parser() -> argparse.ArgumentParser:
                            help="shard particles over N devices (not ported: ROADMAP A16)")
         if name == "pso-inverter":
             p.add_argument("--ood-patient", type=int, default=None)
-            p.add_argument("--epochs", type=int, default=None,
-                           help="fine-tune epochs (default: trainer_pso_inverter.epochs)")
     return parser
 
 
@@ -159,6 +177,10 @@ def main(argv=None):
               "`python -m gan_discovery_pso_tpu.cli`", file=sys.stderr)
         return 2
     args = _parser().parse_args(argv)
+    if args.fast_math and args.stage in NO_FAST_MATH:
+        print(f"--fast-math: not yet ported for the {args.stage} stage (ROADMAP A18); it "
+              "runs in fp32 parity", file=sys.stderr)
+        return 2
     if getattr(args, "shard_swarm", None):
         print("--shard-swarm: not yet ported to the PyTorch package (ROADMAP A16)",
               file=sys.stderr)
@@ -178,6 +200,27 @@ def main(argv=None):
             cnn, rdef = _load_cnn(args, ctx)
             P.run_pso_discovery(ctx, gen, cnn, rdef, batch_classes=args.batch_classes,
                                 fast_math_dtype=fast_math)
+        elif stage == "inverter":
+            gen = _load_gan(args, ctx)
+            cnn = None
+            if str(ctx.cfg.trainer_inverter.training_function) == "pix_fea_rec_adv":
+                cnn, _rdef = _load_cnn(args, ctx)
+            P.run_inverter(ctx, gen, cnn=cnn, epochs=_epochs(args))
+        elif stage in INVERSION_STAGES:
+            gen = _load_gan(args, ctx)
+            enc = P.load_encoder(_require(args.path_inverter, "--path-inverter",
+                                          "models dir of an inverter run"), device=ctx.device)
+            ds = ctx.dataset("test", classes=ctx.data_cfg.ood_classes, drange=(-1, 1))
+            images, labels = ds.images[:8], ds.labels[:8].cpu().numpy()
+            iterations = 50 if args.tiny else 500
+            if stage == "regularize-inverter":
+                P.run_regularize_inverter(ctx, gen, enc, images, iterations=iterations,
+                                          labels=labels)
+            else:
+                P.run_regularize_inverter_statistics(
+                    ctx, gen, enc, images, _require(args.path_pso, "--path-pso",
+                                                    "interim dir of a pso-discovery run"),
+                    iterations=iterations, labels=labels)
         elif stage in ("iid-extract", "ood-extract"):
             enc = P.load_encoder(_require(args.path_inverter, "--path-inverter",
                                           "models dir of an inverter run"), device=ctx.device)

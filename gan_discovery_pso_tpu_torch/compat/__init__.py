@@ -1,4 +1,8 @@
 from gan_discovery_pso_tpu_torch.compat.weights import (
+    discriminator_state_dict,
+    discriminator_tree,
+    encoder_attgan_state_dict,
+    encoder_attgan_tree,
     encoder_state_dict,
     encoder_tree,
     generator_state_dict,
@@ -10,6 +14,10 @@ from gan_discovery_pso_tpu_torch.compat.weights import (
 )
 
 __all__ = [
+    "discriminator_state_dict",
+    "discriminator_tree",
+    "encoder_attgan_state_dict",
+    "encoder_attgan_tree",
     "encoder_state_dict",
     "encoder_tree",
     "generator_state_dict",

@@ -10,7 +10,8 @@ reference's state-dict names, which the port's modules carry:
            np.asarray accepts, BN stats as an object with .mean/.var, a dict
            or a (mean, var) pair)
     generator_state_dict(params, state) / resnet_state_dict(params, state) /
-    encoder_state_dict(params)
+    encoder_state_dict(params) / discriminator_state_dict(params) /
+    encoder_attgan_state_dict(params, state)
         → {name: np.ndarray}
     to_tensors(...) → {name: torch.Tensor}, ready for
         module.load_state_dict(..., strict=True)
@@ -21,7 +22,9 @@ and back (counterpart of `compat/torch_import.py:54,121`):
         → (params, state) numpy trees in the JAX layout, BN stats as
           `{mean, var}` dicts and every dict's keys sorted, the form a JAX
           run's checkpoint holds (`core/checkpoint.py` writes it);
-    encoder_tree(state_dict) → params (the plain encoder has no state)
+    encoder_tree(state_dict) / discriminator_tree(state_dict) → params
+        (neither has state);
+    encoder_attgan_tree(state_dict) → (params, state)
 
 `load_reference_checkpoint` reads the reference's `.tar`
 (`{'epoch', 'model_state_dict', 'loss'}`) and bare `.pt` state dicts.
@@ -81,6 +84,28 @@ def encoder_state_dict(params: dict) -> dict:
     _put_conv(sd, "enc.0", params["conv1"])
     _put_conv(sd, "enc.2.0", params["conv2"])
     _put_conv(sd, "enc.3", params["conv3"])
+    return sd
+
+
+def discriminator_state_dict(params: dict) -> dict:
+    """DCGAN discriminator params → `Discriminator` state dict (`disc.*`
+    names, JAX `compat/torch_export.py:73-77`)."""
+    sd: dict = {}
+    _put_conv(sd, "disc.0", params["conv1"])
+    _put_conv(sd, "disc.2.0", params["conv2"])
+    _put_conv(sd, "disc.3", params["conv3"])
+    return sd
+
+
+def encoder_attgan_state_dict(params: dict, state: dict) -> dict:
+    """AttGAN encoder (params, state) → `EncoderAttGAN` state dict
+    (`enc_layers.{i}.layers.0` conv, `.1` BN with its running stats)."""
+    sd: dict = {}
+    i = 0
+    while f"conv{i}" in params:
+        _put_conv(sd, f"enc_layers.{i}.layers.0", params[f"conv{i}"])
+        _put_bn(sd, f"enc_layers.{i}.layers.1", params[f"bn{i}"], state[f"bn{i}"])
+        i += 1
     return sd
 
 
@@ -146,6 +171,23 @@ def encoder_tree(sd: dict) -> dict:
     """`Encoder` state dict → the JAX package's plain-encoder params."""
     return _sorted({"conv1": _conv_tree(sd, "enc.0"), "conv2": _conv_tree(sd, "enc.2.0"),
                     "conv3": _conv_tree(sd, "enc.3")})
+
+
+def discriminator_tree(sd: dict) -> dict:
+    """`Discriminator` state dict → the JAX package's discriminator params."""
+    return _sorted({"conv1": _conv_tree(sd, "disc.0"), "conv2": _conv_tree(sd, "disc.2.0"),
+                    "conv3": _conv_tree(sd, "disc.3")})
+
+
+def encoder_attgan_tree(sd: dict) -> tuple[dict, dict]:
+    """`EncoderAttGAN` state dict → the JAX package's AttGAN (params, state)."""
+    params, state = {}, {}
+    i = 0
+    while f"enc_layers.{i}.layers.0.weight" in sd:
+        params[f"conv{i}"] = _conv_tree(sd, f"enc_layers.{i}.layers.0")
+        params[f"bn{i}"], state[f"bn{i}"] = _bn_tree(sd, f"enc_layers.{i}.layers.1")
+        i += 1
+    return _sorted(params), _sorted(state)
 
 
 def resnet_tree(sd: dict) -> tuple[dict, dict]:

@@ -11,6 +11,11 @@ a hash of exactly that tuple. So class c's swarm, drawn from
 `keys.child(f"class_{c}")("pso")`, depends on (seed, "class_c", "pso")
 alone: the batched and the sequential stage give it the same draws, and
 adding a consumer elsewhere reshuffles nothing.
+
+The stages' streams: `pso` (a child per class in discovery), `rehead`,
+`epoch_{e}` (batch order, peeked), and the inverter's `enc`, `disc`,
+`inv_fixed_noise`, `inv_step` (each adversarial train step's labels),
+`inv_eval` (each eval batch's) and `invert_bn` (the initial weights).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""DCGAN generator, eval-mode forward (counterpart of
-`gan_discovery_pso_tpu/models/dcgan.py:56-89`).
+"""DCGAN generator (eval-mode forward) and discriminator (counterpart of
+`gan_discovery_pso_tpu/models/dcgan.py:48-126`).
 
 Reference src/utils/util_dcgan.py:128-149:
 
@@ -11,8 +11,20 @@ Reference src/utils/util_dcgan.py:128-149:
 Submodules carry the reference's state-dict names (`gen.0.0`, `gen.0.1`,
 `gen.1.0`, `gen.1.1`, `gen.2`), so a reference checkpoint and
 `compat/weights.py` output load with `strict=True`. The forward always uses
-the BN running statistics (the PSO fitness path); training waits for the
-training slice.
+the BN running statistics (the PSO fitness path); the generator's training
+waits for the DCGAN slice.
+
+Discriminator (reference src/utils/util_dcgan.py:103-125; the inverter's
+adversary, util_inverter.py:95-140):
+
+    x [N, C, 28, 28]
+      → Conv(C,  f,  k4, s2, p1) + LeakyReLU(0.2)  → [N, f, 14, 14]
+      → Conv(f,  2f, k4, s2, p1) + LeakyReLU(0.2)  → [N, 2f, 7, 7]
+      → Conv(2f, 1,  k7, s2, p0) + Sigmoid         → [N, 1, 1, 1]
+
+with the reference's names `disc.0`, `disc.2.0`, `disc.3`. It has no state
+(the reference's BN is commented out). `logits` is the pre-sigmoid trunk as
+[N], for the stable BCE.
 """
 
 from __future__ import annotations
@@ -20,15 +32,21 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from gan_discovery_pso_tpu_torch.ops import batch_norm_eval, conv_transpose2d
+from gan_discovery_pso_tpu_torch.ops import batch_norm_eval, conv2d, conv_transpose2d
 
 
 class GeneratorDef(NamedTuple):
     z_dim: int
     channels_img: int = 1
     features_g: int = 64
+
+
+class DiscriminatorDef(NamedTuple):
+    channels_img: int = 1
+    features_d: int = 64
 
 
 def _block(cin, cout, k, s, p, **kw):
@@ -60,3 +78,30 @@ class Generator(nn.Module):
         head = self.gen[2]
         return torch.tanh(conv_transpose2d(h, head.weight, head.bias,
                                            head.stride, head.padding))
+
+
+class Discriminator(nn.Module):
+    def __init__(self, d: DiscriminatorDef, *, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        f = d.features_d
+        self.disc = nn.Sequential(
+            nn.Conv2d(d.channels_img, f, 4, 2, 1, **kw),
+            nn.LeakyReLU(0.2),
+            nn.Sequential(nn.Conv2d(f, f * 2, 4, 2, 1, **kw), nn.LeakyReLU(0.2)),
+            nn.Conv2d(f * 2, 1, 7, 2, 0, **kw),
+            nn.Sigmoid(),
+        )
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N, C, 28, 28] → pre-sigmoid logits [N]."""
+        h = x
+        for conv in (self.disc[0], self.disc[2][0]):
+            h = F.leaky_relu(conv2d(h, conv.weight, conv.bias, conv.stride, conv.padding), 0.2)
+        head = self.disc[3]
+        h = conv2d(h, head.weight, head.bias, head.stride, head.padding)
+        return h.reshape(h.shape[0])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N, C, 28, 28] → D(x) [N, 1, 1, 1] in (0, 1)."""
+        return torch.sigmoid(self.logits(x)).reshape(-1, 1, 1, 1)

@@ -14,7 +14,9 @@ Schemes (reference src/utils/util_dcgan.py:45-48, src/pso/util_cnn.py:65-79):
   weights; linear biases keep torch's default; BN weight 1, bias 0;
 - `torch_default` linear (a re-headed assessor's new head,
   `change_classifier_head`): `nn.Linear`'s own kaiming-uniform weight and
-  U(±1/sqrt(fan_in)) bias.
+  U(±1/sqrt(fan_in)) bias; `torch_default_init_` does the same to every
+  conv of a model (the AttGAN encoder) and resets its BNs to weight 1,
+  bias 0.
 """
 
 from __future__ import annotations
@@ -87,3 +89,16 @@ def torch_default_linear_(layer: nn.Linear, generator: torch.Generator) -> nn.Li
     if layer.bias is not None:
         _default_bias_(layer.bias, layer.weight, generator)
     return layer
+
+
+@torch.no_grad()
+def torch_default_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """torch's own conv/linear initialisation drawn from `generator`, BN
+    weight 1 and bias 0, in place."""
+    for m in model.modules():
+        if isinstance(m, (*_CONVS, nn.Linear)):
+            torch_default_linear_(m, generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            nn.init.ones_(m.weight)
+            _reset_bn_(m)
+    return model

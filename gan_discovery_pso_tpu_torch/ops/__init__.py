@@ -2,7 +2,11 @@ from gan_discovery_pso_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from gan_discovery_pso_tpu_torch.ops.norm import batch_norm_eval, batch_norm_train
 from gan_discovery_pso_tpu_torch.ops.pool import adaptive_max_pool2d, max_pool2d
 from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
-from gan_discovery_pso_tpu_torch.ops.rescale import adjust_dynamic_range, rescale01_per_sample
+from gan_discovery_pso_tpu_torch.ops.rescale import (
+    adjust_dynamic_range,
+    postprocess_uint8,
+    rescale01_per_sample,
+)
 
 __all__ = [
     "adaptive_max_pool2d",
@@ -14,5 +18,6 @@ __all__ = [
     "conv_transpose2d",
     "fp32_parity",
     "max_pool2d",
+    "postprocess_uint8",
     "rescale01_per_sample",
 ]

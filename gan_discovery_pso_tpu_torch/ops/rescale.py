@@ -1,5 +1,6 @@
-"""Per-sample min-max rescale and the dynamic-range map (counterpart of
-`gan_discovery_pso_tpu/ops/rescale.py:30,44`).
+"""Per-sample min-max rescale, the dynamic-range map and the uint8
+post-processing (counterpart of `gan_discovery_pso_tpu/ops/rescale.py:30,
+44,55`).
 
 The discovery fitness rescales each generated image to [0, 1] by its own
 min and max. This is the plain version; the fitness path calls the kernel
@@ -35,3 +36,12 @@ def adjust_dynamic_range(data, drange_in, drange_out):
     bias = f32(drange_out[0]) - f32(drange_in[0]) * scale
     # python floats of fp32 values: an fp32 array or tensor stays fp32
     return data * float(scale) + float(bias)
+
+
+def postprocess_uint8(images: torch.Tensor, min_val: float = -1.0,
+                      max_val: float = 1.0) -> torch.Tensor:
+    """[min, max] floats → uint8 [0, 255] with the reference's +0.5 rounding
+    (src/inverter/utils_ae/util_inverter.py:497-522); the cast truncates, as
+    the JAX package's does."""
+    images = (images - min_val) * 255.0 / (max_val - min_val)
+    return torch.clamp(images + 0.5, 0, 255).to(torch.uint8)

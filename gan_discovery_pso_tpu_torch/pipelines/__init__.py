@@ -11,7 +11,10 @@ from gan_discovery_pso_tpu_torch.pipelines.stages import (
     load_encoder,
     load_gan,
     run_extractor,
+    run_inverter,
     run_pso_inverter,
+    run_regularize_inverter,
+    run_regularize_inverter_statistics,
 )
 
 __all__ = [
@@ -23,7 +26,10 @@ __all__ = [
     "load_gan",
     "render_swarm_grids",
     "run_extractor",
+    "run_inverter",
     "run_pso_discovery",
     "run_pso_discovery_batched",
     "run_pso_inverter",
+    "run_regularize_inverter",
+    "run_regularize_inverter_statistics",
 ]

@@ -1,14 +1,32 @@
-"""Model loaders and the inversion stages (counterpart of
-`gan_discovery_pso_tpu/pipelines/stages.py`: `load_gan` :463,
-`assessor_factory` :481, `load_cnn` :610, `load_encoder` :927,
-`run_extractor` :954, `run_pso_inverter` :1002).
+"""Model loaders, the inverter's training and the inversion stages
+(counterpart of `gan_discovery_pso_tpu/pipelines/stages.py`: `load_gan`
+:463, `assessor_factory` :481, `load_cnn` :610, `_inverter_epoch_viz` :646,
+`run_inverter` :670, `load_encoder` :927, `run_extractor` :954,
+`run_pso_inverter` :1002, `_regularize_snapshots_and_pickle` :1144,
+`run_regularize_inverter` :1180, `run_regularize_inverter_statistics`
+:1220).
 
 The loaders read the flax-msgpack checkpoints the JAX package's `dcgan`,
-`cnn-multipatient` and `inverter` stages write (`core/checkpoint.py`) and
-return the port's `nn.Module`s, in eval mode, on the requested device (the
-card unless the caller names another), built through `compat/weights.py`.
-The training stages of those checkpoints are later slices (ROADMAP A9, A10,
-A12).
+`cnn-multipatient` and `inverter` stages (or this package's `inverter`)
+write (`core/checkpoint.py`) and return the port's `nn.Module`s, in eval
+mode, on the requested device (the card unless the caller names another),
+built through `compat/weights.py`. The training stages of the generator and
+the assessor are later slices (ROADMAP A9, A10).
+
+The inverter stage (reference src/training/inverter.py) trains an encoder
+against the frozen generator: the plain encoder (DCGAN init) or the AttGAN
+one (`model_inverter.encoder_variant: attgan`, torch-default init), by
+`pix_rec` or by `pix_fea_rec_adv` (with a discriminator and the frozen
+assessor's features), every forward and backward in fp32 parity. The
+encoder of the epoch with the best val-IiD loss (pix+fea for the
+adversarial branch; the train loss where the val set is empty) is kept as a
+cloned state dict and saved as `encoder.msgpack` in the JAX layout:
+`{"params"}`, or `{"params", "state", "variant": "attgan"}`.
+
+The regularize stages invert OoD test images by gradient descent on z
+(`invert`), or on a mix of the PSO classes' latent statistics
+(`invert_bn`, the particles of a pso-discovery run), and write the inverted
+latents, the last image's ori/enc/inv triptych and the latent DataFrame.
 
 The pso-inverter (reference src/training/pso_inverter.py) has two phases:
 1. re-head the assessor to (not patient, patient) and fine-tune it on the
@@ -23,6 +41,7 @@ The pso-inverter (reference src/training/pso_inverter.py) has two phases:
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import time
 from pathlib import Path
 
@@ -32,7 +51,9 @@ from torch import nn
 
 from gan_discovery_pso_tpu_torch.analysis import reporting
 from gan_discovery_pso_tpu_torch.compat.weights import (
+    encoder_attgan_tree,
     encoder_state_dict,
+    encoder_tree,
     generator_state_dict,
     resnet_state_dict,
     resnet_tree,
@@ -43,14 +64,21 @@ from gan_discovery_pso_tpu_torch.core.config import AdamConfig, PsoConfig
 from gan_discovery_pso_tpu_torch.core.device import resolve_device
 from gan_discovery_pso_tpu_torch.data import train_val_split
 from gan_discovery_pso_tpu_torch.models import (
+    Discriminator,
+    DiscriminatorDef,
     Encoder,
+    EncoderAttGAN,
+    EncoderAttGANDef,
     EncoderDef,
     Generator,
     GeneratorDef,
     ResNet,
     ResNetDef,
     change_classifier_head,
+    dcgan_init_,
+    torch_default_init_,
 )
+from gan_discovery_pso_tpu_torch.ops import postprocess_uint8
 from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
 from gan_discovery_pso_tpu_torch.pipelines.context import StageContext
 from gan_discovery_pso_tpu_torch.pipelines.pso_discovery import (
@@ -62,12 +90,19 @@ from gan_discovery_pso_tpu_torch.pso import (
     OPTIMIZE_IN,
     SwarmResult,
     draw_uniforms,
+    load_final_particle_positions,
     make_discovery_fitness_dynamic,
     make_inverter_runner,
     save_particle_histories,
     swarm_init_from_positions,
 )
 from gan_discovery_pso_tpu_torch.train.cnn import train_cnn
+from gan_discovery_pso_tpu_torch.train.inverter import (
+    invert,
+    invert_bn,
+    make_pix_fea_rec_adv_step,
+    make_pix_rec_step,
+)
 
 
 def load_gan(model_dir: str | Path, best: bool = True, device=None) -> Generator:
@@ -155,6 +190,195 @@ def load_encoder(model_dir: str | Path, device=None) -> Encoder:
     enc = Encoder(EncoderDef(int(enc_dim), int(channels), int(f)), device=device)
     enc.load_state_dict(to_tensors(encoder_state_dict(params), device=device), strict=True)
     return enc.eval()
+
+
+def _can_write(tag: str, families) -> dict:
+    """{package: importable here} for (package, what it writes) pairs; one
+    printed line per missing package, naming what is not written."""
+    out = {}
+    for package, what in families:
+        out[package] = reporting.host_has(package)
+        if not out[package]:
+            print(f"[{tag}] not writing {what}: {package} is not installed")
+    return out
+
+
+# -- inverter training (reference src/training/inverter.py) -------------------
+
+_EVAL_KEYS = ("loss_enc", "loss_enc_adv", "loss_enc_rec_pix", "loss_enc_rec_fea")
+_TRAIN_KEYS = ("loss_enc_adv", "loss_enc_rec_pix", "loss_enc_rec_fea", "loss_disc",
+               "loss_disc_adv", "loss_disc_r1penalty")
+
+
+def _epoch_mean(values: list) -> float:
+    """The mean of an epoch's 0-d loss tensors, read in one transfer (NaN
+    for none), in float64 as a mean of Python floats is."""
+    if not values:
+        return float("nan")
+    return float(np.mean(torch.stack(values).cpu().numpy().astype(np.float64)))
+
+
+def _inverter_epoch_viz(ctx: StageContext, gen: nn.Module, encoder: nn.Module,
+                        phase_sets: dict, epoch: int, fixed_noise: torch.Tensor,
+                        can: dict) -> None:
+    """The reference's per-epoch visuals (util_inverter.py:259,280 /
+    :455,477): `img_loss_{phase}_{epoch}.png`, each phase's first 10
+    images over their G(E(x)) (matplotlib), and `synthetic_images_{epoch}
+    .png`, G of one fixed noise batch (PIL). E in eval mode."""
+    encoder.eval()
+    with fp32_parity(), torch.no_grad():
+        if can["matplotlib"]:
+            for phase, ds in phase_sets.items():
+                if len(ds.images) == 0:
+                    continue
+                x = ds.images[:10]
+                reporting.recon_panel(x.cpu().numpy(), gen(encoder(x)).cpu().numpy(),
+                                      ctx.run.general_dir / f"img_loss_{phase}_{epoch}.png")
+        if can["PIL"]:
+            reporting.superimage(gen(fixed_noise).cpu().numpy(),
+                                 ctx.run.general_dir / f"synthetic_images_{epoch}.png",
+                                 drange=(-1, 1))
+
+
+def _snapshot(module: nn.Module) -> dict:
+    """A copy of the state dict: the optimizer updates the weights in place."""
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def run_inverter(ctx: StageContext, gen: nn.Module, cnn: ResNet | None = None,
+                 epochs: int | None = None) -> tuple[nn.Module, dict]:
+    """Train the encoder of `model_inverter.encoder_variant` by
+    `trainer_inverter.training_function` against the frozen generator `gen`
+    (and, for pix_fea_rec_adv, the frozen assessor `cnn`'s features) for
+    `epochs` (default `trainer_inverter.epochs`). Streams: the encoder's
+    init `enc`, the discriminator's `disc`, the fixed noise
+    `inv_fixed_noise`, each adversarial train step's label draws
+    `inv_step` and each eval batch's `inv_eval`; each epoch's batch order
+    `epoch_{e}`. The visuals are written every epoch.
+
+    Returns (the encoder with the best epoch's weights, in eval mode; the
+    history, with the JAX stage's keys)."""
+    cfg = ctx.cfg
+    tag = "inverter"
+    latent = int(cfg.model_inverter.latent_space)
+    adam = AdamConfig.from_config(cfg.trainer_inverter.encoder_optimizer)
+    bs = int(cfg.trainer_inverter.batch_size)
+    epochs = epochs if epochs is not None else int(cfg.trainer_inverter.epochs)
+    training_fun = str(cfg.trainer_inverter.training_function)
+    variant = str(cfg.model_inverter.get("encoder_variant", "dcgan") or "dcgan")
+    if training_fun not in ("pix_rec", "pix_fea_rec_adv"):
+        raise ValueError(f"trainer_inverter.training_function {training_fun!r}: the "
+                         "inverter trains by pix_rec or pix_fea_rec_adv")
+    adversarial = training_fun == "pix_fea_rec_adv"
+    if adversarial and cnn is None:
+        raise ValueError("pix_fea_rec_adv needs the multipatient cnn")
+    can = _can_write(tag, (
+        ("matplotlib", "plots (img_loss_*.png, inverter_training.png, *_G_losses.png, "
+                       "*_D_losses.png)"),
+        ("PIL", "the fixed-noise samples (synthetic_images_*.png)")))
+
+    t0 = time.perf_counter()
+    iid = ctx.dataset("train", drange=(-1, 1))
+    val_iid = ctx.dataset("test", drange=(-1, 1))
+    val_ood = ctx.dataset("test", classes=ctx.data_cfg.ood_classes, drange=(-1, 1))
+    phase_sets = {"train": iid, "val_iid": val_iid, "val_ood": val_ood}
+    print(f"[{tag}] data {time.perf_counter() - t0:.6f}s ({iid.images.shape[0]} train, "
+          f"{val_iid.images.shape[0]} val IiD, {val_ood.images.shape[0]} val OoD images)")
+    # drawn on the CPU, so the card and the CPU start alike
+    fixed_noise = torch.randn((32, latent, 1, 1), generator=ctx.keys("inv_fixed_noise"))
+    fixed_noise = fixed_noise.to(ctx.device)
+    channel = ctx.data_cfg.channel
+    if variant == "attgan":
+        encoder = torch_default_init_(EncoderAttGAN(EncoderAttGANDef(latent, channel)),
+                                      ctx.keys("enc"))
+    else:
+        encoder = dcgan_init_(Encoder(EncoderDef(latent, channel)), ctx.keys("enc"))
+    encoder = encoder.to(ctx.device)
+
+    mw = ctx.metrics("history_inverter")
+    history: dict = {}
+    best, best_state = np.inf, _snapshot(encoder)
+    with fp32_parity():
+        if adversarial:
+            disc = dcgan_init_(Discriminator(DiscriminatorDef(
+                channel, int(cfg.model_inverter.D_network.units_disc))), ctx.keys("disc"))
+            disc = disc.to(ctx.device)
+            adam_d = AdamConfig.from_config(cfg.trainer_inverter.discriminator_optimizer)
+            train_step, eval_step = make_pix_fea_rec_adv_step(gen, encoder, disc, cnn.eval(),
+                                                              adam, adam_d)
+        else:
+            train_step, eval_step = make_pix_rec_step(gen, encoder, adam)
+            history = {"train_loss": [], "val_iid_loss": [], "val_ood_loss": []}
+        for epoch in range(epochs):
+            t_ep = time.perf_counter()
+            if adversarial:
+                tr = [train_step(x, ctx.keys("inv_step", ctx.device))
+                      for x, _y in ctx.batches(iid, bs)(epoch)]
+                t_train = time.perf_counter() - t_ep
+                sums = {}
+                for ds, phase in ((val_iid, "val_iid"), (val_ood, "val_ood")):
+                    ms = [eval_step(x, ctx.keys("inv_eval", ctx.device))
+                          for x, _ in ctx.batches(ds, bs, drop_last=False)(epoch)]
+                    # per-phase component series for {phase}_G_losses.png
+                    # (reference util_report_inverter.py:41-74)
+                    for k in _EVAL_KEYS:
+                        history.setdefault(f"{phase}_{k}", []).append(
+                            _epoch_mean([m[k] for m in ms]))
+                    sums[phase] = _epoch_mean([m["loss_enc_rec_pix"] + m["loss_enc_rec_fea"]
+                                               for m in ms])
+                tr_loss = _epoch_mean([m["loss_enc"] for m in tr])
+                for k in _TRAIN_KEYS:
+                    history.setdefault(f"train_{k}", []).append(_epoch_mean([m[k] for m in tr]))
+                for k, v in (("train_loss_enc", tr_loss), ("val_iid_pixfea", sums["val_iid"]),
+                             ("val_ood_pixfea", sums["val_ood"])):
+                    history.setdefault(k, []).append(v)
+                mw.append(epoch, train_loss_enc=tr_loss, val_iid_pixfea=sums["val_iid"],
+                          val_ood_pixfea=sums["val_ood"])
+                tr_l, sel = tr_loss, sums["val_iid"]
+                n_steps = len(tr)
+            else:
+                tl = [train_step(x) for x, _y in ctx.batches(iid, bs)(epoch)]
+                t_train = time.perf_counter() - t_ep
+                vi = [eval_step(x) for x, _ in ctx.batches(val_iid, bs, drop_last=False)(epoch)]
+                vo = [eval_step(x) for x, _ in ctx.batches(val_ood, bs, drop_last=False)(epoch)]
+                tr_l, sel, vo_l = _epoch_mean(tl), _epoch_mean(vi), _epoch_mean(vo)
+                for k, v in (("train_loss", tr_l), ("val_iid_loss", sel), ("val_ood_loss", vo_l)):
+                    history[k].append(v)
+                mw.append(epoch, train_loss=tr_l, val_iid_loss=sel, val_ood_loss=vo_l)
+                n_steps = len(tl)
+            t_eval = time.perf_counter() - t_ep - t_train
+            # an empty val set gives NaN, and `nan < best` is always False,
+            # which would keep the random init as "best": fall back to the
+            # train loss (JAX :737-742, :893-897)
+            sel = sel if np.isfinite(sel) else tr_l
+            if sel < best:  # best by val IiD (reference :273-277, :470-475)
+                best, best_state = sel, _snapshot(encoder)
+            t_viz = time.perf_counter()
+            _inverter_epoch_viz(ctx, gen, encoder, phase_sets, epoch, fixed_noise, can)
+            print(f"[{tag}] epoch {epoch}: {n_steps} train steps {t_train:.6f}s, eval "
+                  f"{t_eval:.6f}s, visuals {time.perf_counter() - t_viz:.6f}s; train loss "
+                  f"{tr_l:.6f}, selection loss {sel:.6f}")
+
+    encoder.load_state_dict(best_state)
+    sd = encoder.state_dict()
+    if variant == "attgan":
+        params, state = encoder_attgan_tree(sd)
+        ctx.ckpt.save_state_dict("encoder", {"params": params, "state": state,
+                                             "variant": "attgan"})
+    else:
+        ctx.ckpt.save_state_dict("encoder", {"params": encoder_tree(sd)})
+    if can["matplotlib"]:
+        summary = ("train_loss", "val_iid_loss", "val_ood_loss", "train_loss_enc",
+                   "val_iid_pixfea", "val_ood_pixfea")
+        reporting.plot_training_curves({k: v for k, v in history.items() if k in summary},
+                                       ctx.run.reports_dir / "inverter_training.png")
+        # the adversarial branch's component figures ({phase}_G/D_losses.png)
+        for phase in ("train", "val_iid", "val_ood"):
+            reporting.plot_phase_losses(history, ctx.run.plot_dir, phase)
+    mw.close()
+    ctx.run.write_timing({})  # (reference inverter.py:242-249)
+    ctx.run.write_overall_history(history)
+    return encoder.eval(), history
 
 
 def _encode(encoder: nn.Module, images: torch.Tensor) -> torch.Tensor:
@@ -325,3 +549,118 @@ def run_pso_inverter(
           f"{n} particles x {hp_n.n_iterations} iterations in {res_wall:.6f}s, "
           f"g_best={float(res.g_best_val):.6f}, artifacts written in {artifact_s:.6f}s")
     return res, fine
+
+
+# -- gradient inversion (reference regularize_inverter*.py) -------------------
+
+_REGULARIZE_FAMILIES = (
+    ("matplotlib", "plots (the loss curves)"),
+    ("PIL", "images (synthetic_images_*.png, ori.png, enc.png, inv.png)"),
+    ("pandas", "the inverted-latent pickle (particles_position_ood.pkl)"))
+
+
+def _regularize_snapshots_and_pickle(ctx: StageContext, gen: nn.Module, encoder: nn.Module,
+                                     images: torch.Tensor, z_final: torch.Tensor, labels,
+                                     can: dict) -> None:
+    """The reference's per-image artifacts (regularize_inverter[_statistics]
+    .py:171-190): `ori.png` / `enc.png` / `inv.png`, rewritten per image
+    there, so the LAST image's triptych is what survives; and the
+    inverted-latent DataFrame `particles_position_ood.pkl` (rows = images,
+    columns = z features and a last uint8 label column)."""
+    if can["PIL"]:
+        last = images[-1:]
+        with fp32_parity(), torch.no_grad():
+            triptych = (("ori", last), ("enc", gen(encoder(last))), ("inv", gen(z_final[-1:])))
+            for name, img in triptych:
+                reporting.save_grayscale(ctx.run.general_dir / f"{name}.png",
+                                         postprocess_uint8(img).cpu().numpy()[0, 0])
+    if can["pandas"]:
+        import pandas as pd
+
+        zmat = z_final.cpu().numpy().reshape(len(images), -1)
+        df = pd.DataFrame(np.concatenate([zmat, np.zeros((len(zmat), 1), zmat.dtype)], axis=1))
+        lab = np.zeros(len(zmat)) if labels is None else np.asarray(labels)[:len(zmat)]
+        # a column assignment, so that the label column really becomes
+        # uint8 (reference regularize_inverter.py:188)
+        df[df.columns[-1]] = lab.astype(np.uint8)
+        with open(ctx.run.interim_dir / "particles_position_ood.pkl", "wb") as f:
+            pickle.dump(df, f)
+
+
+def _log_inversion(tag: str, images, iterations: int, seconds: float, hist: dict) -> None:
+    steps = iterations + 1
+    print(f"[{tag}] {len(images)} images x {steps} steps in {seconds:.6f}s "
+          f"({steps / seconds:.1f} it/s); loss {float(hist['loss'][0]):.6f} -> "
+          f"{float(hist['loss'][-1]):.6f}")
+
+
+def run_regularize_inverter(ctx: StageContext, gen: nn.Module, encoder: nn.Module,
+                            images: torch.Tensor, iterations: int = 500,
+                            labels=None) -> tuple[torch.Tensor, dict]:
+    """Gradient descent on each image's z from E's encoding (reference
+    regularize_inverter.py via util_inverter.invert:544-638), batched, fp32
+    parity. Writes `inverted_z.npz`, the loss curves, the
+    `synthetic_images_{step}.png` superimages of every tenth of the run
+    (the JAX stage's num_vis=10), decoded from the recorded z trajectory
+    (reference :622-624), the triptych and the DataFrame. Returns (z [B, z,
+    1, 1], history)."""
+    tag = "regularize_inverter"
+    can = _can_write(tag, _REGULARIZE_FAMILIES)
+    t0 = time.perf_counter()
+    with fp32_parity():
+        z, hist = invert(images, gen, encoder, iterations=iterations, record_z=True)
+    _log_inversion(tag, images, iterations, time.perf_counter() - t0, hist)
+    z_hist = hist.pop("z")
+    if can["matplotlib"]:
+        reporting.plot_training_curves({k: list(v) for k, v in hist.items()},
+                                       ctx.run.reports_dir / "invert_loss.png")
+        # the reference's combined component figure (util_report_inverter.py:76-84)
+        reporting.plot_regularize_inverter_losses(
+            hist, ctx.run.reports_dir / "regularize_inverter_losses.png")
+    if can["PIL"]:
+        every = max(iterations // 10, 1)
+        for step in range(0, iterations + 1, every):
+            zs = torch.as_tensor(z_hist[min(step, len(z_hist) - 1)], device=z.device)
+            with fp32_parity(), torch.no_grad():
+                x_rec = gen(zs).cpu().numpy()
+            reporting.superimage(x_rec, ctx.run.general_dir / f"synthetic_images_{step}.png",
+                                 drange=(-1, 1))
+    np.savez_compressed(ctx.run.interim_dir / "inverted_z.npz", z=z.cpu().numpy())
+    _regularize_snapshots_and_pickle(ctx, gen, encoder, images, z, labels, can)
+    ctx.run.write_timing({})  # (reference regularize_inverter.py:195-200)
+    ctx.run.write_overall_history({k: list(v) for k, v in hist.items()})
+    return z, hist
+
+
+def run_regularize_inverter_statistics(
+    ctx: StageContext, gen: nn.Module, encoder: nn.Module, images: torch.Tensor,
+    pso_interim_dir, iterations: int = 500, labels=None, w0=None,
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """The z-statistics variant (reference regularize_inverter_statistics.py
+    with invert_bn): each image's z mixes the per-class normalisations
+    against the final particles of the IiD classes of the pso-discovery run
+    in `pso_interim_dir`; the initial weights come
+    from the stream `invert_bn`, or are `w0` [B, C] (parity tests feed the
+    JAX package's draw). Writes `inverted_bn_z.npz` (z, weights),
+    the loss curves, the triptych and the DataFrame. Returns (z, w,
+    history)."""
+    tag = "regularize_inverter_statistics"
+    parts = np.stack([load_final_particle_positions(pso_interim_dir, c, "iid")
+                      for c in ctx.data_cfg.iid_classes])
+    can = _can_write(tag, _REGULARIZE_FAMILIES)
+    t0 = time.perf_counter()
+    with fp32_parity():
+        z, w, hist = invert_bn(images, gen, encoder, parts, iterations=iterations,
+                               generator=ctx.keys("invert_bn"), w0=w0)
+    _log_inversion(tag, images, iterations, time.perf_counter() - t0, hist)
+    if can["matplotlib"]:
+        reporting.plot_training_curves({k: list(v) for k, v in hist.items()},
+                                       ctx.run.reports_dir / "invert_bn_loss.png")
+        reporting.plot_regularize_inverter_losses(
+            hist, ctx.run.reports_dir / "regularize_inverter_losses.png")
+    np.savez_compressed(ctx.run.interim_dir / "inverted_bn_z.npz", z=z.cpu().numpy(),
+                        weights=w.cpu().numpy())
+    _regularize_snapshots_and_pickle(ctx, gen, encoder, images, z, labels, can)
+    ctx.run.write_timing({})
+    ctx.run.write_overall_history({k: list(v) for k, v in hist.items()})
+    return z, w, hist

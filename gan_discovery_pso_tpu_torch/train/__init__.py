@@ -1,2 +1,3 @@
-"""Training loops of the port: the assessor's (`cnn.py`), on the optimizers
-and loss of `common.py`."""
+"""Training loops of the port: the assessor's (`cnn.py`) and the inverter's
+steps and gradient inversions (`inverter.py`), on the optimizers, losses
+and label smoothing of `common.py`."""

@@ -1,6 +1,7 @@
-"""Optimizers and the classification loss of the port's training loops
+"""Optimizers, losses and label smoothing of the port's training loops
 (counterpart of `gan_discovery_pso_tpu/train/common.py`: `make_optimizer`
-:17, `cross_entropy_loss` :70).
+:17, `bce_from_logits` :43, `bce_on_probs` :49, `smooth_positive`/
+`smooth_negative` :57-64, `cross_entropy_loss` :70).
 
 The JAX package builds optax chains that reproduce torch's optimizers; here
 they are torch's own:
@@ -8,6 +9,10 @@ they are torch's own:
 - RMSprop: `optim.RMSprop` with torch's alpha 0.99 and eps outside the
   sqrt (the reference passes only lr/eps/weight_decay, util_dcgan.py:36-42);
 - weight_decay: L2 added to the gradients, as both of them do it.
+
+The GAN label smoothing (reference util_dcgan.py:77-83) draws from an
+explicit `torch.Generator`: torch cannot replay threefry, so parity tests
+feed the steps the targets the JAX package drew.
 """
 
 from __future__ import annotations
@@ -35,3 +40,26 @@ def make_optimizer(cfg: AdamConfig, params, name: str | None = None) -> torch.op
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy on int labels (torch CrossEntropyLoss)."""
     return F.cross_entropy(logits.float(), labels.long())
+
+
+def bce_from_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of sigmoid(logits) in the stable form;
+    targets may be soft and exceed 1 (the smoothed positives)."""
+    return F.binary_cross_entropy_with_logits(logits, targets)
+
+
+def bce_on_probs(probs: torch.Tensor, targets: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """BCE on probabilities, clipped to [eps, 1 − eps] (torch's BCELoss
+    clamps its log terms at −100 instead)."""
+    p = torch.clamp(probs, eps, 1.0 - eps)
+    return -torch.mean(targets * torch.log(p) + (1.0 - targets) * torch.log(1.0 - p))
+
+
+def smooth_positive(generator: torch.Generator, shape, device=None) -> torch.Tensor:
+    """class 1 → U[0.7, 1.2] (reference util_dcgan.py:77-81)."""
+    return 0.7 + 0.5 * torch.rand(shape, generator=generator, device=device)
+
+
+def smooth_negative(generator: torch.Generator, shape, device=None) -> torch.Tensor:
+    """class 0 → U[0, 0.3] (reference util_dcgan.py:77-83)."""
+    return 0.3 * torch.rand(shape, generator=generator, device=device)
