@@ -31,7 +31,17 @@ encoder read back bit-equal; 5 steady steps of each kind profiled;
 regularize-inverter on 8 OoD images x 500 iterations with a bit-equal
 rerun; regularize-inverter-statistics on the pipeline phase's particles;
 one step of each kind and 10 invert iterations on the card against the
-CPU; no port kernel on these paths, 0 launches each), then times
+CPU; no port kernel on these paths, 0 launches each), runs the assessor and
+evaluation stages through their CLI (the assessor and evaluation phase:
+`cae` at latent 10 and batch 128 for 1 epoch, `classifiers` on it with the
+test split's KNN posterior on the card against the CPU, equal but for
+near-ties; `cnn-multipatient` with ResNet-50 and `pso-discovery
+--batch-classes` on the model.msgpack it wrote, 50 launches each; `cnn`, 8
+ResNet-50s on 2048 images; an AlexNet cnn-multipatient under the batched
+runner, 50 launches each; every checkpoint read back bit-equal; then
+`evaluate_gan_epoch` over 12,800 samples of G(64), B2 10 launches at
+[1280, 784], FID, IS, rec and one evaluation profiled; 1280 samples on the
+card against the CPU), then times
 each kernel at the main path's shape and at a large one (device µs per
 launch from the profiler over the last 50 of 60 calls in a session, as
 the profiler loses the kernel events of a session's first calls; beside
@@ -89,11 +99,13 @@ SWARM_TIMED = ((N_CLASSES, N_PARTICLES, DIM), (1, 4096, 1024), (1, INV_PARTICLES
 # B2 [N, F]: the main path's images, short unaligned and odd rows, many rows,
 # rows in registers at every team size (8, 4, 2, 1 warps) and register
 # depth (1 to 32 float4 a thread), long rows (one CTA each; 65536 = a
-# 256x256 CLARO slice, 4099 odd), the 2-D landscape's 100x100 mesh
+# 256x256 CLARO slice, 4099 odd), the 2-D landscape's 100x100 mesh, and the
+# GAN evaluation sampler's chunk of 1280 images
 RESCALE_SHAPES = ((N_CLASSES * N_PARTICLES, 784), (9, 300), (5, 301), (4096, 784),
                   (600, 1500), (1500, 2049), (3000, 203), (2100, 4000),
-                  (4, 65536), (3, 4099), (LANDSCAPE ** 2, 784))
+                  (4, 65536), (3, 4099), (LANDSCAPE ** 2, 784), (1280, 784))
 RESCALE_TIMED = ((N_CLASSES * N_PARTICLES, 784), (4096, 784))
+N_SYNTHETIC = 12800  # images of one GAN evaluation (evaluate_gan_epoch's default)
 # device kernel names of each wrapper, as the profiler reports them
 KERNEL_NAMES = {"swarm_update": ("swarm_update_kernel",),
                 "rescale01_rows": ("rescale_short_kernel", "rescale_long_kernel")}
@@ -597,45 +609,22 @@ def check_loaded(original, loaded, what: str) -> None:
             raise AssertionError(f"{what}: {k} differs after the checkpoint round trip")
 
 
-def run_cli(tmp: Path, label: str, dirs: dict, device, kernels, *flags, sets=()) -> dict:
-    """`cli.main(["pso-discovery", ...])` in this process, with its run dirs
-    under tmp/label: the launches of each kernel (counts zeroed just
-    before), the wall time, timing.json, the per-class g_best and
-    trajectories, and the artifact seconds the stage logged."""
-    import re
-
-    import torch
-
-    from gan_discovery_pso_tpu_torch.cli.main import main as cli_main
-
-    roots = {k: tmp / label / k for k in ("reports", "models", "interim")}
-    argv = ["pso-discovery", "--cfg", str(CFG), "--path-gan", str(dirs["gan"]),
-            "--path-cnn", str(dirs["cnn"]), "--device", str(device), *flags, "--set",
-            f"data.reports_dir={roots['reports']}", f"data.model_dir={roots['models']}",
-            f"data.interim_dir={roots['interim']}", *sets]
-    zero_counts(kernels)
-    t0 = time.perf_counter()
-    rc = cli_main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
-    if rc != 0:
-        raise AssertionError(f"pipeline {label}: the CLI returned {rc}")
-    reports = roots["reports"] / "mnist" / "00001--pso_discovery"
-    interim = roots["interim"] / "mnist" / "00001--pso_discovery"
-    with open(reports / "general" / "overall_history.pkl", "rb") as f:
+def run_cli(tmp: Path, label: str, dirs: dict, device, kernels, *flags, sets=None) -> dict:
+    """`pso-discovery` through `cli_stage` on the G and assessor in `dirs`,
+    with timing.json, the per-class g_best and trajectories, and the
+    artifact seconds the stage logged."""
+    run = cli_stage(tmp, label, "pso-discovery", device, kernels, "--path-gan",
+                    str(dirs["gan"]), "--path-cnn", str(dirs["cnn"]), *flags, sets=sets)
+    with open(run["reports"] / "general" / "overall_history.pkl", "rb") as f:
         history = pickle.load(f)
-    log_text = (reports / "log.txt").read_text()
-    artifact_s = float(re.findall(r"artifacts written in ([0-9.]+)s", log_text)[-1])
-    g_best = {k[len("class_"):]: v["global_best_val"][-1] for k, v in history.items()}
     trajectories = {}
-    for npz in interim.glob("particles_iid_class_*.npz"):
+    for npz in run["interim"].glob("particles_iid_class_*.npz"):
         with np.load(npz) as z:
             trajectories[npz.stem.rsplit("_", 1)[-1]] = (z["positions"], z["velocities"])
-    timing = json.loads((reports / "timing.json").read_text())
-    return {"label": label, "wall": wall, "launches": launches, "reports": reports,
-            "interim": interim, "g_best": g_best, "trajectories": trajectories,
-            "timing": timing, "artifact_s": artifact_s}
+    return {**run, "label": label, "trajectories": trajectories,
+            "g_best": {k[len("class_"):]: v["global_best_val"][-1] for k, v in history.items()},
+            "timing": json.loads((run["reports"] / "timing.json").read_text()),
+            "artifact_s": log_seconds(run["log"], r"artifacts written in ([0-9.]+)s")}
 
 
 def expected_artifacts(run: dict, classes, dim: int, n_iterations: int) -> dict:
@@ -775,10 +764,9 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
             "written and read back bit-equal")
         step = after_step or (lambda name: None)
         step("checkpoints")
-        sets = [f"{k}={v}" for k, v in sets100.items()]
 
         # 2. batched fp32 through the CLI, against the runner called directly
-        batched = run_cli(tmp, "batched", dirs, device, kernels, "--batch-classes", sets=sets)
+        batched = run_cli(tmp, "batched", dirs, device, kernels, "--batch-classes", sets=sets100)
         step("batched CLI run")
         expect_launches(batched, dict.fromkeys(names, hp_iters))
         g32 = check_g_best(batched, len(classes))
@@ -795,7 +783,7 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
             shutil.copytree(batched["interim"], keep_interim)
 
         # 3. sequential, one B = 1 runner per class
-        seq = run_cli(tmp, "sequential", dirs, device, kernels, sets=sets)
+        seq = run_cli(tmp, "sequential", dirs, device, kernels, sets=sets100)
         step("sequential CLI run")
         expect_launches(seq, dict.fromkeys(names, len(classes) * hp_iters))
         seq_diff = float(np.abs(check_g_best(seq, len(classes)) - g32).max())
@@ -805,7 +793,7 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
 
         # 4. the shipped dimension, z = dim_space = 2, with the landscape
         dim2 = run_cli(tmp, "dim2", dirs2, device, kernels, "--batch-classes",
-                       sets=["trainer_gan.z_dim=2", "trainer_pso.dim_space=2"])
+                       sets={"trainer_gan.z_dim": 2, "trainer_pso.dim_space": 2})
         step("dim 2 CLI run")
         expect_launches(dim2, {"swarm_update": hp_iters,
                                "rescale01_rows": hp_iters + len(classes)})
@@ -823,7 +811,8 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
                                      f"in [{grid.min()}, {grid.max()}]")
 
         # 5. bf16 on step 2's setup: the gate
-        bf16 = run_cli(tmp, "bf16", dirs, device, kernels, "--batch-classes", "--fast-math", sets=sets)
+        bf16 = run_cli(tmp, "bf16", dirs, device, kernels, "--batch-classes", "--fast-math",
+                       sets=sets100)
         step("bf16 CLI run")
         expect_launches(bf16, dict.fromkeys(names, hp_iters))
         gate = float(np.abs(check_g_best(bf16, len(classes)) - g32).max())
@@ -911,8 +900,6 @@ def inverter_phase(models, device, kernels, card: str, sets=()) -> dict:
 
     import torch
 
-    from gan_discovery_pso_tpu_torch import pipelines
-    from gan_discovery_pso_tpu_torch.cli.main import main as cli_main
     from gan_discovery_pso_tpu_torch.core import load_config
     from gan_discovery_pso_tpu_torch.core.config import AdamConfig, DataConfig
     from gan_discovery_pso_tpu_torch.core.prng import KeyChain
@@ -947,35 +934,16 @@ def inverter_phase(models, device, kernels, card: str, sets=()) -> dict:
 
         # 2. the CLI on a fresh run dir: phase 1 fine-tunes; the stage's
         # return value is kept to hold model_1.msgpack against it
-        kept = {}
-        real = pipelines.run_pso_inverter
-
-        def keep(*a, **kw):
-            kept["res"], kept["fine"] = real(*a, **kw)
-            return kept["res"], kept["fine"]
-
-        argv = ["pso-inverter", "--cfg", str(CFG), "--epochs", "1", "--ood-patient",
-                str(PATIENT), "--path-gan", str(dirs["gan"]), "--path-cnn", str(dirs["cnn"]),
-                "--path-inverter", str(dirs["inv"]), "--device", str(device), "--set",
-                *(f"{k}={v}" for k, v in overrides.items())]
-        pipelines.run_pso_inverter = keep
-        try:
-            zero()
-            t0 = time.perf_counter()
-            rc = cli_main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            pipelines.run_pso_inverter = real
-        out["inverter_cli"] = counts()
-        if rc != 0:
-            raise AssertionError(f"inverter CLI returned {rc}")
-        res, fine = kept["res"], kept["fine"]
+        cli = cli_stage(tmp, "runs", "pso-inverter", device, kernels, "--epochs", "1",
+                        "--ood-patient", str(PATIENT), "--path-gan", str(dirs["gan"]),
+                        "--path-cnn", str(dirs["cnn"]), "--path-inverter", str(dirs["inv"]),
+                        sets=overrides, keep="run_pso_inverter")
+        out["inverter_cli"], wall = cli["launches"], cli["wall"]
+        res, fine = cli["value"]
         n_iters, n = res.hp.n_iterations, res.hp.n_particles
         if out["inverter_cli"] != dict.fromkeys(names, n_iters):
             raise AssertionError(f"inverter CLI launches {out['inverter_cli']}, not {n_iters} each")
-        reports = tmp / "runs" / "reports" / "mnist" / "00001--pso_inverter"
-        models_dir = tmp / "runs" / "model" / "mnist" / "00001--pso_inverter"
+        reports, models_dir = cli["reports"], cli["model"]
         g32 = check_inverter_g_best(res.g_best_val[0], "CLI")
         with open(reports / "general" / "overall_history.pkl", "rb") as f:
             history = pickle.load(f)
@@ -1177,7 +1145,6 @@ def inverter_training_phase(models, device, kernels, card: str, pso_interim: Pat
 
     from gan_discovery_pso_tpu_torch import pipelines
     from gan_discovery_pso_tpu_torch.analysis.reporting import host_has
-    from gan_discovery_pso_tpu_torch.cli.main import main as cli_main
     from gan_discovery_pso_tpu_torch.compat import encoder_attgan_state_dict, to_tensors
     from gan_discovery_pso_tpu_torch.core import AdamConfig, load_config
     from gan_discovery_pso_tpu_torch.core.checkpoint import load_pytree, restore_tree
@@ -1189,13 +1156,6 @@ def inverter_training_phase(models, device, kernels, card: str, pso_interim: Pat
 
     t_phase = time.perf_counter()
     out, report = {}, {}
-    kept = {}
-    real_run_inverter = pipelines.run_inverter
-
-    def keep(*a, **kw):
-        kept["encoder"], kept["history"] = real_run_inverter(*a, **kw)
-        return kept["encoder"], kept["history"]
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_invtrain_") as tmp_name:
         tmp = Path(tmp_name)
         dirs = write_checkpoints(tmp / "upstream", 1, *models)
@@ -1204,36 +1164,18 @@ def inverter_training_phase(models, device, kernels, card: str, pso_interim: Pat
         gan = ["--path-gan", str(dirs["gan"])]
 
         def run(label: str, stage: str, *args, **extra) -> dict:
-            roots = {k: tmp / label / k for k in ("reports", "model", "interim")}
-            cfg_sets = {**overrides, **extra, **{f"data.{k}_dir": v for k, v in roots.items()}}
-            argv = [stage, "--cfg", str(CFG), "--device", str(device), *flags, *args, "--set",
-                    *(f"{k}={v}" for k, v in cfg_sets.items())]
-            kept.clear()
-            zero_counts(kernels)
-            pipelines.run_inverter = keep
-            try:
-                t0 = time.perf_counter()
-                rc = cli_main(argv)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            finally:
-                pipelines.run_inverter = real_run_inverter
-            launches = {k.__name__: k.launches for k in kernels}
-            out[label] = launches
-            if rc != 0:
-                raise AssertionError(f"{label}: the CLI returned {rc}")
-            if any(launches.values()):
-                raise AssertionError(f"{label}: launches {launches}; no port kernel is on "
+            r = cli_stage(tmp, label, stage, device, kernels, *flags, *args,
+                          sets={**overrides, **extra}, keep="run_inverter")
+            out[label] = r["launches"]
+            if any(r["launches"].values()):
+                raise AssertionError(f"{label}: launches {r['launches']}; no port kernel is on "
                                      "this stage's path")
-            run_dirs = {k: v / "mnist" / f"00001--{stage.replace('-', '_')}"
-                        for k, v in roots.items()}
-            with open(run_dirs["reports"] / "general" / "overall_history.pkl", "rb") as f:
+            with open(r["reports"] / "general" / "overall_history.pkl", "rb") as f:
                 history = pickle.load(f)
             bad = {k: v for k, v in history.items() if not np.isfinite(v).all()}
             if bad:
                 raise AssertionError(f"{label}: losses not finite: {bad}")
-            return {"wall": wall, "history": history, "encoder": kept.get("encoder"),
-                    "log": (run_dirs["reports"] / "log.txt").read_text(), **run_dirs}
+            return {**r, "history": history, "encoder": r["value"] and r["value"][0]}
 
         def epoch_numbers(r: dict) -> dict:
             return {"stage_s": r["wall"],
@@ -1361,6 +1303,284 @@ def inverter_training_phase(models, device, kernels, card: str, pso_interim: Pat
     return out
 
 
+def cli_stage(tmp: Path, label: str, stage: str, device, kernels, *args, sets=None,
+              keep: str | None = None) -> dict:
+    """`cli.main([stage, ...])` in this process, its run dirs under
+    tmp/label: the wall time, the launches of each kernel (counts zeroed
+    just before), the run dirs, the text of its log.txt, and what
+    `pipelines.<keep>` returned, where `keep` names the stage function. A
+    non-zero return raises."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch import pipelines
+    from gan_discovery_pso_tpu_torch.cli.main import main as cli_main
+
+    roots = {k: tmp / label / k for k in ("reports", "model", "interim")}
+    cfg_sets = {**(sets or {}), **{f"data.{k}_dir": v for k, v in roots.items()}}
+    argv = [stage, "--cfg", str(CFG), "--device", str(device), *args, "--set",
+            *(f"{k}={v}" for k, v in cfg_sets.items())]
+    kept = {}
+    real = getattr(pipelines, keep) if keep else None
+
+    def keeping(*a, **kw):
+        kept["value"] = real(*a, **kw)
+        return kept["value"]
+
+    if keep:
+        setattr(pipelines, keep, keeping)
+    try:
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if keep:
+            setattr(pipelines, keep, real)
+    if rc != 0:
+        raise AssertionError(f"{label}: the CLI returned {rc}")
+    run_dirs = {k: v / "mnist" / f"00001--{stage.replace('-', '_')}" for k, v in roots.items()}
+    return {"wall": wall, "launches": {k.__name__: k.launches for k in kernels},
+            "value": kept.get("value"), "log": (run_dirs["reports"] / "log.txt").read_text(),
+            **run_dirs}
+
+
+def near_tie_rows(queries, train_x, k: int, rtol: float = 1e-5):
+    """Rows whose k-th and (k+1)-th nearest squared distances lie within
+    `rtol` of each other: where rounding may pick another neighbour."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops import pairwise_sq_dists
+
+    s = torch.sort(pairwise_sq_dists(queries, train_x), dim=1).values
+    return (s[:, k] - s[:, k - 1]).abs() <= rtol * s[:, k].abs()
+
+
+def posteriors_agree(on_card, on_cpu, ties, what: str) -> dict:
+    """Card and CPU posteriors [N, C] equal on every row but near-ties;
+    raises where a row that is not a near-tie differs. Returns the counts."""
+    import torch
+
+    differ = (on_card.cpu() != on_cpu).any(dim=1)
+    ties = ties.cpu()
+    if bool((differ & ~ties).any()):
+        raise AssertionError(f"{what}: {int((differ & ~ties).sum())} rows that are no near-tie "
+                             "differ between the card and the CPU")
+    return {"rows": int(differ.numel()), "rows_differing": int(differ.sum()),
+            "near_tie_rows": int(ties.sum())}
+
+
+def evaluation_numbers(res) -> dict:
+    return {"fid": float(res.fid), "is": float(res.inception_score),
+            "rec": float(res.rec_loss_syn)}
+
+
+def assessor_eval_phase(models, device, kernels, card: str, sets=()) -> dict:
+    """The assessor and evaluation stages through the CLI on the synthetic
+    digits, at the shipped widths in fp32 parity: `cae` (latent 10, batch
+    128, 1 epoch; both files read back bit-equal), `classifiers` on it
+    (`classifiers.msgpack` read back; the test split's posterior on the card
+    against the CPU path, equal but for near-ties), `cnn-multipatient`
+    (ResNet-50, 8 classes, 1 epoch; `model.msgpack` read back bit-equal)
+    and `pso-discovery --batch-classes` on that models dir with G(64),
+    z = 100, 8 x 32 x 50 (50 launches of each kernel), `cnn` (8 ResNet-50s,
+    1 epoch, --limit 2048; each `model_{label}.msgpack` read back), an
+    AlexNet `cnn-multipatient` (padding same, 1 epoch) under the batched
+    runner (50 launches each), then `evaluate_gan_epoch` with G(64), the
+    phase's CAE and battery over N_SYNTHETIC images (B2 10 launches at
+    [1280, 784]; FID, IS, rec, wall time, one evaluation profiled) and 1280
+    images on the card against the CPU. The stages themselves launch no
+    port kernel. Returns each run's launches. `sets` adds config overrides
+    (a rehearsal on the CPU cuts the data)."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import PsoConfig, load_config
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+    from gan_discovery_pso_tpu_torch.data import load_mnist
+    from gan_discovery_pso_tpu_torch.evaluation import (
+        compute_posterior, encode, evaluate_gan_epoch, inception_score, load_battery,
+        mean_and_cov)
+    from gan_discovery_pso_tpu_torch.evaluation.classifiers import auto_chunk
+    from gan_discovery_pso_tpu_torch.models import Generator, GeneratorDef, ResNetDef
+    from gan_discovery_pso_tpu_torch.pipelines import assessor_factory, load_cae, load_cnn
+    from gan_discovery_pso_tpu_torch.train.dcgan import make_sampler
+
+    t_phase = time.perf_counter()
+    out, report = {}, {}
+    names = [k.__name__ for k in kernels]
+    none = dict.fromkeys(names, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_assess_") as tmp_name:
+        tmp = Path(tmp_name)
+        data = {"data.data_dir": str(tmp / "no_mnist"), **dict(sets)}
+
+        def stage(label, name, *args, keep=None, **extra):
+            run = cli_stage(tmp, label, name, device, kernels, *args, sets={**data, **extra},
+                            keep=keep)
+            out[label] = run["launches"]
+            tag = f"[{name.replace('-', '_')}]"  # the stage's own lines: its splits
+            report[label] = {"stage_s": run["wall"], "log": [
+                ln for ln in run["log"].splitlines() if ln.startswith(tag) and "done →" not in ln]}
+            return run
+
+        # 1. cae, 1 epoch at the shipped widths; both files read back
+        cae = stage("cae", "cae", "--epochs", "1", keep="run_cae")
+        encoder, decoder, history = cae["value"]
+        enc2, dec2 = load_cae(cae["model"], device=device)
+        check_loaded(encoder, enc2, "encoder.msgpack (cae)")
+        check_loaded(decoder, dec2, "decoder.msgpack (cae)")
+        if not np.isfinite(history["train_loss"]).all():
+            raise AssertionError(f"cae: losses not finite: {history}")
+
+        # 2. classifiers on that CAE; the posterior on the card and the CPU
+        cls = stage("classifiers", "classifiers", "--path-cae", str(cae["model"]),
+                    keep="run_classifiers")
+        battery = load_battery(cls["model"] / "classifiers.msgpack", device=device)
+        kept = cls["value"]
+        for a, b in zip(battery[:3], kept[:3]):
+            if not torch.equal(a, b):
+                raise AssertionError("classifiers.msgpack differs from the stage's battery")
+        cfg = load_config(CFG, overrides=data)
+        data_cfg = DataConfig.from_config(cfg.data)
+        val = load_mnist(data["data.data_dir"], "test", classes=data_cfg.iid_classes,
+                         drange=(0, 1), device=device)
+        emb_te = encode(encoder, val.images)
+        cpu_battery = type(battery)(*(t.cpu() for t in battery[:3]), k=battery.k)
+        report["classifiers_card_vs_cpu"] = posteriors_agree(
+            compute_posterior(battery, emb_te), compute_posterior(cpu_battery, emb_te.cpu()),
+            near_tie_rows(emb_te, battery.train_x, battery.k), "classifiers posterior")
+
+        # 3. cnn-multipatient (ResNet-50), then pso-discovery on its model.msgpack
+        multi = stage("cnn_multipatient", "cnn-multipatient", "--epochs", "1",
+                      keep="run_cnn_multipatient")
+        model, mdef = multi["value"]
+        check_loaded(model, load_cnn(multi["model"], mdef, device=device),
+                     "model.msgpack (cnn-multipatient)")
+        dirs = {**write_checkpoints(tmp / "upstream", 1, gen=models[0]), "cnn": multi["model"]}
+        pso = run_cli(tmp, "pso_on_port_assessor", dirs, device, kernels, "--batch-classes",
+                      sets={"trainer_gan.z_dim": DIM, "trainer_pso.dim_space": DIM,
+                            **dict(sets)})
+        out["pso_on_port_assessor"] = pso["launches"]
+        iters = int(cfg.trainer_pso.n_iterations)
+        expect_launches(pso, dict.fromkeys(names, iters))
+        report["pso_on_port_assessor"] = {"stage_s": pso["wall"],
+                                          "g_best": check_g_best(pso, len(mdef.iid_classes))
+                                          .tolist()}
+
+        # 4. cnn: the one-vs-all battery of 8 ResNet-50s, cut to --limit 2048
+        battery_run = stage("cnn", "cnn", "--epochs", "1", "--limit", "2048", keep="run_cnn")
+        bdef = ResNetDef(mdef.model_name, mdef.image_channels, 2, mdef.iid_classes)
+        for label, member in battery_run["value"].items():
+            check_loaded(member, load_cnn(battery_run["model"], bdef, label=label,
+                                          device=device), f"model_{label}.msgpack (cnn)")
+
+        # 5. AlexNet: cnn-multipatient, then the batched runner on it
+        alex = stage("alexnet", "cnn-multipatient", "--epochs", "1",
+                     keep="run_cnn_multipatient",
+                     **{"model_cnn.model_name": "AlexNet", "model_cnn.network.padding": "same"})
+        adef = assessor_factory(load_config(CFG, overrides={
+            **data, "model_cnn.model_name": "AlexNet", "model_cnn.network.padding": "same"}),
+            data_cfg, len(data_cfg.iid_classes))[0]
+        alexnet = load_cnn(alex["model"], adef, device=device)
+        check_loaded(alex["value"][0], alexnet, "model.msgpack (AlexNet)")
+        hp = PsoConfig(n_iterations=iters, n_particles=int(cfg.trainer_pso.n_particles),
+                       dim_space=DIM)
+        final, _, seconds, launches = drive_main_path((models[0], alexnet), device, None,
+                                                      kernels, hp=hp)
+        out["alexnet_runner"] = launches
+        if launches != dict.fromkeys(names, iters):
+            raise AssertionError(f"AlexNet runner launches {launches}, not {iters} each")
+        g = final.g_best_val
+        if not (bool(torch.isfinite(g).all()) and bool((g >= EPS).all())
+                and bool((g <= 1 + EPS).all())):
+            raise AssertionError(f"AlexNet runner: g_best out of [eps, 1+eps]: {g.tolist()}")
+        report["alexnet_runner"] = {"seconds": seconds, "g_best": g.tolist()}
+
+        # 6. evaluate_gan_epoch: G(64) z = 100, the phase's CAE and battery
+        real01 = val.images
+        enc_real = encode(encoder, real01)
+        sample = make_sampler(models[0])
+        rng = torch.Generator(device=device).manual_seed(SEED + 10)
+
+        def evaluate():
+            return evaluate_gan_epoch(sample, encoder, decoder, battery, real01,
+                                      n_synthetic=N_SYNTHETIC, enc_real=enc_real, generator=rng)
+
+        zero_counts(kernels)
+        res = evaluate()
+        torch.cuda.synchronize()
+        out["evaluate_gan_epoch"] = {k.__name__: k.launches for k in kernels}
+        want = {**none, **({"rescale01_rows": -(-N_SYNTHETIC // 1280)}
+                           if "rescale01_rows" in names else {})}
+        if out["evaluate_gan_epoch"] != want:
+            raise AssertionError(f"evaluate_gan_epoch launches {out['evaluate_gan_epoch']}, "
+                                 f"not {want}")
+        numbers = evaluation_numbers(res)
+        if not (all(np.isfinite(v) for v in numbers.values())
+                and tuple(res.p_yx.shape) == (N_SYNTHETIC, len(data_cfg.iid_classes))):
+            raise AssertionError(f"evaluate_gan_epoch: {numbers}, p_yx {tuple(res.p_yx.shape)}")
+        t0 = time.perf_counter()
+        evaluate()
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        prof = profile_steps(evaluate, [()] * 3)
+        report["evaluate_gan_epoch"] = {
+            **numbers, "n_synthetic": N_SYNTHETIC, "battery_rows": int(battery.train_x.shape[0]),
+            "query_chunk": auto_chunk(battery, N_SYNTHETIC), "wall_ms_warm": warm_ms,
+            "profiled": prof}
+
+        # 7. 1280 images with injected z and noise, card against CPU, with a
+        # torch-default-init G, whose images move with z (a DCGAN-init G's
+        # vary by ~1e-5 around its bias, and the per-image rescale would
+        # blow the card's and the CPU's rounding up to whole pixels)
+        torch.manual_seed(SEED + 11)
+        gen_t = Generator(GeneratorDef(DIM, 1, 64)).eval()
+        draw = torch.Generator().manual_seed(SEED + 12)
+        z = torch.randn((1280, DIM, 1, 1), generator=draw)
+        noise = torch.randn((1280, 1, 28, 28), generator=draw)
+        pair = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            enc_w, dec_w = (copy.deepcopy(m).to(dev) for m in (encoder, decoder))
+            bat = type(battery)(*(t.to(dev) for t in battery[:3]), k=battery.k)
+            pair[where] = evaluate_gan_epoch(
+                make_sampler(copy.deepcopy(gen_t).to(dev)), enc_w, dec_w, bat, real01.to(dev),
+                n_synthetic=1280, z=z.to(dev), noise=noise.to(dev))
+        agree = posteriors_agree(pair["card"].p_yx, pair["cpu"].p_yx,
+                                 near_tie_rows(encode(encoder, make_sampler(gen_t.to(device))(
+                                     1280, z=z.to(device))), battery.train_x, battery.k),
+                                 "evaluate_gan_epoch posterior")
+        card_n, cpu_n = evaluation_numbers(pair["card"]), evaluation_numbers(pair["cpu"])
+        # IS on the rows whose posteriors agree (every row when no near-tie
+        # flipped), so that the gate always holds it
+        same = ~(pair["card"].p_yx.cpu() != pair["cpu"].p_yx).any(dim=1)
+        for nums, res in ((card_n, pair["card"]), (cpu_n, pair["cpu"])):
+            nums["is_agreeing_rows"] = float(inception_score(res.p_yx[same.to(res.p_yx.device)]))
+        agree["is_rows"] = int(same.sum())
+        # the FID is a difference of its trace terms, so its rounding scales
+        # with tr(Σ_real) + tr(Σ_syn), not with the FID itself
+        cpu_enc = copy.deepcopy(encoder).cpu()
+        traces = sum(float(torch.trace(mean_and_cov(encode(cpu_enc, x))[1])) for x in (
+            real01.cpu(), make_sampler(copy.deepcopy(gen_t).cpu())(1280, z=z)))
+        atol = {"fid": 1e-4 * traces, "rec": 0.0, "is_agreeing_rows": 0.0}
+        for key in ("fid", "rec", "is_agreeing_rows"):
+            if not np.isclose(card_n[key], cpu_n[key], rtol=1e-4, atol=atol[key]):
+                raise AssertionError(f"evaluate_gan_epoch card vs CPU: {key} {card_n[key]} vs "
+                                     f"{cpu_n[key]} (rtol 1e-4, atol {atol[key]})")
+        report["evaluate_card_vs_cpu"] = {"card": card_n, "cpu": cpu_n, "fid_traces": traces,
+                                          **agree}
+
+    for label, launches in out.items():
+        if label in ("cae", "classifiers", "cnn_multipatient", "cnn", "alexnet") and \
+                launches != none:
+            raise AssertionError(f"{label}: launches {launches}; no port kernel is on this "
+                                 "stage's path")
+    log(f"assessor and evaluation stages ({card}): " + json.dumps(report))
+    log(f"assessor and evaluation phase: {time.perf_counter() - t_phase:.6f} s ({card})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1427,6 +1647,7 @@ def main() -> int:
         pipeline_launches.update(inverter_phase(models, device, KERNELS, card))
         pipeline_launches.update(inverter_training_phase(models, device, KERNELS, card,
                                                          pso_interim))
+    pipeline_launches.update(assessor_eval_phase(models, device, KERNELS, card))
     prof = profile_main_path(models, device, KERNELS)
     log("profile fp32 main path: " + json.dumps(prof))
     log("profile bf16 main path: "

@@ -8,7 +8,9 @@ scatters, the 2-D fitness landscape, GIFs and image grids (counterpart of
 `plot_cnn_training` :647) and of the inverter stages
 (`plot_training_curves` :160, `save_grayscale` :244,
 `plot_regularize_inverter_losses` :274, `plot_phase_losses` :677,
-`recon_panel` :709).
+`recon_panel` :709), of the CAE and the classifier battery
+(`denoise_panel` :256, `plot_latent_space` :560, `plot_img_latent_space`
+:581, `plot_battery_tree` :606, `error_reject_curve` :966).
 
 matplotlib and PIL are imported inside the writers, so the package imports
 on a host that lacks them; the stage asks `host_has` before it calls a
@@ -409,3 +411,105 @@ def recon_panel(originals, reconstructions, out_path, n_img: int = 10):
     _savefig(fig, out_path, 400)
     plt.close(fig)
     return Path(out_path)
+
+
+def denoise_panel(originals, noisy, reconstructions, out_path, n_img: int = 10):
+    """Original / noisy / denoised, a 3 x n panel (reference
+    `plot_den_ae_outputs`, evaluation/util_cae.py:284-310, `img_loss.png`)."""
+    plt = _plt()
+    rows = [np.asarray(r)[:n_img] for r in (originals, noisy, reconstructions)]
+    n = len(rows[0])
+    fig = plt.figure(figsize=(9, 3))
+    for r, row in enumerate(rows):
+        for i in range(n):
+            ax = fig.add_subplot(3, n, r * n + i + 1)
+            ax.imshow(row[i].squeeze(), cmap="gist_gray")
+            ax.get_xaxis().set_visible(False)
+            ax.get_yaxis().set_visible(False)
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_latent_space(embeddings, labels, out_dir, dataset="Training"):
+    """The CAE's 2-D latent scatter, one colour per label (reference
+    `plot_feature_latent_space`, util_cae.py:375-409) →
+    `latent_space_{dataset}.png`."""
+    plt = _plt()
+    embeddings, labels = np.asarray(embeddings), np.asarray(labels)
+    fig, ax = plt.subplots()
+    for lab in np.unique(labels):
+        m = labels == lab
+        ax.scatter(embeddings[m, 0], embeddings[m, 1], label=str(lab), alpha=1, s=10,
+                   marker="o", edgecolors="none")
+    ax.legend()
+    ax.set_xlabel("var_0")
+    ax.set_ylabel("var_1")
+    ax.set_title(f"Latent space {dataset} Set")
+    out_path = Path(out_dir) / f"latent_space_{dataset}.png"
+    _savefig(fig, out_path, 400)
+    plt.close(fig)
+    return out_path
+
+
+def plot_img_latent_space(decode_batch, out_dir, r0=(-1, 1), r1=(-1, 1), n=10, w=28):
+    """The decoder swept over the 2-D latent box (reference
+    `plot_img_latent_space`, util_cae.py:355-374): an n x n canvas whose
+    rows span r1 bottom-up and columns r0 left to right, all n² latents
+    decoded as one batch. decode_batch: z [B, 2] (float32 numpy) → images
+    [B, ...] reshapeable to (w, w)."""
+    plt = _plt()
+    xs, ys = np.linspace(*r0, n), np.linspace(*r1, n)
+    grid = np.array([[x, y] for y in ys for x in xs], np.float32)
+    imgs = np.asarray(decode_batch(grid)).reshape(n, n, w, w)
+    canvas = np.zeros((n * w, n * w), np.float32)
+    for i in range(n):  # row i: latent y index, drawn bottom-up
+        for j in range(n):
+            canvas[(n - 1 - i) * w:(n - i) * w, j * w:(j + 1) * w] = imgs[i, j]
+    fig, ax = plt.subplots()
+    ax.imshow(canvas, extent=[*r0, *r1], cmap="gist_gray")
+    out_path = Path(out_dir) / f"img_latent_r0_{r0[0]}_{r0[1]}__r1_{r1[0]}_{r1[1]}.png"
+    _savefig(fig, out_path, 400)
+    plt.close(fig)
+    return out_path
+
+
+def plot_battery_tree(activation: dict, classes, out_path):
+    """The battery's activation curves (reference classifiers.py:219-239,
+    cnn.py:211-246): per class's test set, the count of positive
+    predictions of every battery member."""
+    plt = _plt()
+    fig, ax = plt.subplots()
+    for label, counts in activation.items():
+        ax.plot(counts, label=str(label))
+    ax.legend()
+    ax.set_xticks(np.arange(len(classes)))
+    ax.set_xticklabels([str(c) for c in classes])
+    ax.set_xlabel("Classifiers")
+    ax.set_ylabel("Classifier activation per test set")
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def error_reject_curve(y_true, y_score, out_path=None, label=None):
+    """%error against %rejection of one one-vs-all battery classifier
+    (reference classifiers.py:186-213): the 90-threshold sweep of
+    `evaluation.error_reject_points`, drawn with marker 'o', the class as
+    title and ylim [0, 30] where `out_path` is given. Returns (p_rej,
+    p_err)."""
+    from gan_discovery_pso_tpu_torch.evaluation.classifiers import error_reject_points
+
+    p_rej, p_err, _ = error_reject_points(y_true, y_score)
+    if out_path is not None:
+        plt = _plt()
+        fig, ax = plt.subplots()
+        ax.plot(p_rej, p_err, marker="o")
+        if label is not None:
+            ax.set_title(str(label))
+        ax.set_ylabel("% error")
+        ax.set_xlabel("% rejection")
+        ax.set_ylim([0, 30])
+        _savefig(fig, out_path, 200)
+        plt.close(fig)
+    return p_rej, p_err

@@ -1,10 +1,14 @@
 """Command-line entry point of the port (counterpart of
 `gan_discovery_pso_tpu/cli/main.py`: `_parse_set`, `_add_common`, `_TINY`,
 `_ctx`, `_epochs` :33-90, `_load_gan`/`_load_cnn` :271-290, and the
-`pso-discovery`, `inverter`, `iid-extract`/`ood-extract`, `pso-inverter`,
+`cae`, `classifiers`, `cnn`, `cnn-multipatient`, `pso-discovery`,
+`inverter`, `iid-extract`/`ood-extract`, `pso-inverter`,
 `regularize-inverter` and `regularize-inverter-statistics` branches
-:371-414):
+:351-414):
 
+    python -m gan_discovery_pso_tpu_torch.cli cae [--epochs E] ...
+    python -m gan_discovery_pso_tpu_torch.cli classifiers --path-cae DIR ...
+    python -m gan_discovery_pso_tpu_torch.cli cnn|cnn-multipatient [--epochs E] ...
     python -m gan_discovery_pso_tpu_torch.cli pso-discovery \\
         --cfg configs/dcgan_mnist.yaml --path-gan DIR --path-cnn DIR \\
         [--batch-classes] [--fast-math] [--tiny] [--limit N] \\
@@ -21,13 +25,14 @@
     python -m gan_discovery_pso_tpu_torch.cli regularize-inverter-statistics \\
         --path-gan DIR --path-inverter DIR --path-pso DIR ...
 
-`--path-gan`, `--path-cnn` and `--path-inverter` are the models dirs of the
-JAX package's (or a later port's) `dcgan`, `cnn-multipatient` and
+`--path-cae`, `--path-gan`, `--path-cnn` and `--path-inverter` are the
+models dirs of either package's `cae`, `dcgan`, `cnn-multipatient` and
 `inverter` runs: the port reads their flax-msgpack checkpoints. The stages
 run on the card; `--device cpu` is the port's counterpart of
 `JAX_PLATFORMS=cpu`. `--fast-math` runs the swarm's forwards in bf16 (the
-pso-inverter's fine-tune stays in fp32 parity); the inverter and the two
-regularize stages refuse it (exit 2, ROADMAP A18). `--path-cnn` is read by
+pso-inverter's fine-tune stays in fp32 parity); the training stages (cae,
+cnn, cnn-multipatient, inverter), classifiers and the two regularize
+stages refuse it (exit 2, ROADMAP A18). `--path-cnn` is read by
 `inverter` only for `trainer_inverter.training_function=pix_fea_rec_adv`;
 `--path-pso` is the interim dir of a pso-discovery run. The regularize
 stages invert the first 8 OoD test images, 500 iterations (50 with
@@ -47,17 +52,20 @@ import torch
 # stages of the JAX package's CLI that the port does not run yet, with the
 # ROADMAP item of each
 NOT_PORTED = {
-    "cae": "A11", "classifiers": "A11", "dcgan": "A9", "cnn": "A10",
-    "cnn-multipatient": "A10", "vqvae": "A13", "pixelcnn-prior": "A13",
+    "dcgan": "A9", "vqvae": "A13", "pixelcnn-prior": "A13",
     "pso-analysis": "A15", "pso-analysis-clustering": "A15",
     "pso-analysis-distance": "A15", "pso-inverter-analysis": "A15",
     "claro-preprocess": "A14", "sweep": "A17", "export-model": "A17",
     "convert-torch": "A17", "export-torch": "A17",
 }
 INVERSION_STAGES = ("regularize-inverter", "regularize-inverter-statistics")
-# stages that train or optimise by gradients: the JAX package's --fast-math
-# there is TPU DEFAULT precision, whose card counterpart is not decided yet
-NO_FAST_MATH = ("inverter", *INVERSION_STAGES)
+# stages that build a model from the data alone (no upstream checkpoint but
+# the classifiers' --path-cae)
+MODEL_STAGES = ("cae", "classifiers", "cnn", "cnn-multipatient")
+# stages that train, optimise by gradients or build the evaluation battery:
+# the JAX package's --fast-math there is TPU DEFAULT precision, whose card
+# counterpart is not decided yet
+NO_FAST_MATH = (*MODEL_STAGES, "inverter", *INVERSION_STAGES)
 
 
 def _parse_set(values):
@@ -145,6 +153,14 @@ def _load_cnn(args, ctx):
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="gan-discovery-pso-tpu-torch")
     sub = parser.add_subparsers(dest="stage", required=True)
+    for name in MODEL_STAGES:
+        p = sub.add_parser(name)
+        _add_common(p)
+        if name == "classifiers":
+            p.add_argument("--path-cae", default=None, help="cae stage model dir")
+        else:
+            p.add_argument("--epochs", type=int, default=None,
+                           help="training epochs (default: the stage's trainer_*.epochs)")
     for name in ("pso-discovery", "pso-inverter", "iid-extract", "ood-extract", "inverter",
                  *INVERSION_STAGES):
         p = sub.add_parser(name)
@@ -195,7 +211,16 @@ def main(argv=None):
     fast_math = torch.bfloat16 if args.fast_math else None
     ctx = _ctx(args, stage.replace("-", "_"))
     with ctx.tee():
-        if stage == "pso-discovery":
+        if stage == "cae":
+            P.run_cae(ctx, epochs=_epochs(args))
+        elif stage == "classifiers":
+            P.run_classifiers(ctx, cae_model_dir=_require(args.path_cae, "--path-cae",
+                                                          "models dir of a cae run"))
+        elif stage == "cnn":
+            P.run_cnn(ctx, epochs=_epochs(args))
+        elif stage == "cnn-multipatient":
+            P.run_cnn_multipatient(ctx, epochs=_epochs(args))
+        elif stage == "pso-discovery":
             gen = _load_gan(args, ctx)
             cnn, rdef = _load_cnn(args, ctx)
             P.run_pso_discovery(ctx, gen, cnn, rdef, batch_classes=args.batch_classes,

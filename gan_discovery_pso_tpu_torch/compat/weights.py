@@ -11,7 +11,8 @@ reference's state-dict names, which the port's modules carry:
            or a (mean, var) pair)
     generator_state_dict(params, state) / resnet_state_dict(params, state) /
     encoder_state_dict(params) / discriminator_state_dict(params) /
-    encoder_attgan_state_dict(params, state)
+    encoder_attgan_state_dict(params, state) / alexnet_state_dict(params) /
+    cae_encoder_state_dict(params, state) / cae_decoder_state_dict(params, state)
         → {name: np.ndarray}
     to_tensors(...) → {name: torch.Tensor}, ready for
         module.load_state_dict(..., strict=True)
@@ -22,9 +23,14 @@ and back (counterpart of `compat/torch_import.py:54,121`):
         → (params, state) numpy trees in the JAX layout, BN stats as
           `{mean, var}` dicts and every dict's keys sorted, the form a JAX
           run's checkpoint holds (`core/checkpoint.py` writes it);
-    encoder_tree(state_dict) / discriminator_tree(state_dict) → params
-        (neither has state);
-    encoder_attgan_tree(state_dict) → (params, state)
+    encoder_tree(state_dict) / discriminator_tree(state_dict) /
+    alexnet_tree(state_dict) → params (none of them has state);
+    encoder_attgan_tree(state_dict) / cae_encoder_tree(state_dict) /
+    cae_decoder_tree(state_dict) → (params, state)
+
+AlexNet has no reference name map in the JAX package: its state-dict names
+are the JAX tree's (`conv1`…`conv4`, `fc1`…`fc3`). The CAE's are the
+reference's (JAX `compat/torch_export.py:89-110`).
 
 `load_reference_checkpoint` reads the reference's `.tar`
 (`{'epoch', 'model_state_dict', 'loss'}`) and bare `.pt` state dicts.
@@ -130,6 +136,46 @@ def resnet_state_dict(params: dict, state: dict) -> dict:
     return sd
 
 
+_ALEXNET_LAYERS = ("conv1", "conv2", "conv3", "conv4", "fc1", "fc2", "fc3")
+# (JAX tree key, state-dict prefix) of the CAE's convs and linears, and of
+# its BNs
+_CAE_ENCODER = ((("conv1", "encoder_cnn.0"), ("conv2", "encoder_cnn.2"),
+                 ("conv3", "encoder_cnn.5"), ("fc1", "encoder_linear.0"),
+                 ("fc2", "encoder_linear.2")), (("bn2", "encoder_cnn.3"),))
+_CAE_DECODER = ((("fc1", "decoder_linear.0"), ("fc2", "decoder_linear.2"),
+                 ("convt1", "decoder_conv.0"), ("convt2", "decoder_conv.3"),
+                 ("convt3", "decoder_conv.6")),
+                (("bn1", "decoder_conv.1"), ("bn2", "decoder_conv.4")))
+
+
+def alexnet_state_dict(params: dict) -> dict:
+    """AlexNet params → `AlexNet` state dict (the JAX tree's names)."""
+    sd: dict = {}
+    for name in _ALEXNET_LAYERS:
+        _put_conv(sd, name, params[name])
+    return sd
+
+
+def _cae_state_dict(layout, params: dict, state: dict) -> dict:
+    layers, bns = layout
+    sd: dict = {}
+    for key, prefix in layers:
+        _put_conv(sd, prefix, params[key])
+    for key, prefix in bns:
+        _put_bn(sd, prefix, params[key], state[key])
+    return sd
+
+
+def cae_encoder_state_dict(params: dict, state: dict) -> dict:
+    """CAE encoder (params, state) → `CAEEncoder` state dict."""
+    return _cae_state_dict(_CAE_ENCODER, params, state)
+
+
+def cae_decoder_state_dict(params: dict, state: dict) -> dict:
+    """CAE decoder (params, state) → `CAEDecoder` state dict."""
+    return _cae_state_dict(_CAE_DECODER, params, state)
+
+
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
@@ -188,6 +234,30 @@ def encoder_attgan_tree(sd: dict) -> tuple[dict, dict]:
         params[f"bn{i}"], state[f"bn{i}"] = _bn_tree(sd, f"enc_layers.{i}.layers.1")
         i += 1
     return _sorted(params), _sorted(state)
+
+
+def alexnet_tree(sd: dict) -> dict:
+    """`AlexNet` state dict → the JAX package's AlexNet params."""
+    return _sorted({name: _conv_tree(sd, name) for name in _ALEXNET_LAYERS})
+
+
+def _cae_tree(layout, sd: dict) -> tuple[dict, dict]:
+    layers, bns = layout
+    params = {key: _conv_tree(sd, prefix) for key, prefix in layers}
+    state = {}
+    for key, prefix in bns:
+        params[key], state[key] = _bn_tree(sd, prefix)
+    return _sorted(params), _sorted(state)
+
+
+def cae_encoder_tree(sd: dict) -> tuple[dict, dict]:
+    """`CAEEncoder` state dict → the JAX package's CAE encoder (params, state)."""
+    return _cae_tree(_CAE_ENCODER, sd)
+
+
+def cae_decoder_tree(sd: dict) -> tuple[dict, dict]:
+    """`CAEDecoder` state dict → the JAX package's CAE decoder (params, state)."""
+    return _cae_tree(_CAE_DECODER, sd)
 
 
 def resnet_tree(sd: dict) -> tuple[dict, dict]:

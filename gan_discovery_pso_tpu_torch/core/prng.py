@@ -13,7 +13,9 @@ alone: the batched and the sequential stage give it the same draws, and
 adding a consumer elsewhere reshuffles nothing.
 
 The stages' streams: `pso` (a child per class in discovery), `rehead`,
-`epoch_{e}` (batch order, peeked), and the inverter's `enc`, `disc`,
+`epoch_{e}` (batch order, peeked), the CAE's `cae` (the init, then the
+denoising noise) and `cae_img_loss`, the assessors' `cnn_{label}`/`init`
+(a child per class) and `cnn_multi`, and the inverter's `enc`, `disc`,
 `inv_fixed_noise`, `inv_step` (each adversarial train step's labels),
 `inv_eval` (each eval batch's) and `invert_bn` (the initial weights).
 """

@@ -10,7 +10,15 @@ from gan_discovery_pso_tpu_torch.models.encoder import (
     EncoderAttGANDef,
     EncoderDef,
 )
+from gan_discovery_pso_tpu_torch.models.cae import (
+    CAEDecoder,
+    CAEDef,
+    CAEEncoder,
+    add_noise,
+)
 from gan_discovery_pso_tpu_torch.models.layers import (
+    CNN_INITIALIZERS,
+    cnn_init_,
     dcgan_init_,
     glorot_normal_init_,
     linear,
@@ -18,6 +26,8 @@ from gan_discovery_pso_tpu_torch.models.layers import (
     torch_default_linear_,
 )
 from gan_discovery_pso_tpu_torch.models.resnet import (
+    AlexNet,
+    AlexNetDef,
     Bottleneck,
     ResNet,
     ResNetDef,
@@ -25,7 +35,13 @@ from gan_discovery_pso_tpu_torch.models.resnet import (
 )
 
 __all__ = [
+    "AlexNet",
+    "AlexNetDef",
     "Bottleneck",
+    "CAEDecoder",
+    "CAEDef",
+    "CAEEncoder",
+    "CNN_INITIALIZERS",
     "Discriminator",
     "DiscriminatorDef",
     "Encoder",
@@ -36,7 +52,9 @@ __all__ = [
     "GeneratorDef",
     "ResNet",
     "ResNetDef",
+    "add_noise",
     "change_classifier_head",
+    "cnn_init_",
     "dcgan_init_",
     "glorot_normal_init_",
     "torch_default_init_",

@@ -10,8 +10,12 @@ torch cannot reproduce: parity tests carry weights across with
 Schemes (reference src/utils/util_dcgan.py:45-48, src/pso/util_cnn.py:65-79):
 - DCGAN: N(0, 0.02) on conv, transposed-conv and BN weights; biases keep
   torch's default U(±1/sqrt(fan_in)); BN biases 0;
-- `glorot_normal` (the ResNet assessors): xavier-normal conv and linear
-  weights; linear biases keep torch's default; BN weight 1, bias 0;
+- the assessors' `model_cnn.network.cnn_initializer` (`cnn_init_`, the
+  JAX package's `_WEIGHT_INITS`, layers.py:62-67): `glorot_normal`
+  (xavier-normal), `glorot_uniform` (xavier-uniform), `he_normal`
+  (kaiming-normal on fan-in, leaky-relu gain with a = 0), `random_normal`
+  (N(0, 0.02)) or `torch_default` conv and linear weights; biases keep
+  torch's default; BN weight 1, bias 0;
 - `torch_default` linear (a re-headed assessor's new head,
   `change_classifier_head`): `nn.Linear`'s own kaiming-uniform weight and
   U(±1/sqrt(fan_in)) bias; `torch_default_init_` does the same to every
@@ -67,19 +71,40 @@ def dcgan_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+_CNN_WEIGHT_INITS = {
+    "random_normal": lambda w, g: nn.init.normal_(w, 0.0, 0.02, generator=g),
+    "glorot_normal": lambda w, g: nn.init.xavier_normal_(w, generator=g),
+    "glorot_uniform": lambda w, g: nn.init.xavier_uniform_(w, generator=g),
+    "he_normal": lambda w, g: nn.init.kaiming_normal_(
+        w, a=0.0, mode="fan_in", nonlinearity="leaky_relu", generator=g),
+}
+CNN_INITIALIZERS = ("torch_default", *_CNN_WEIGHT_INITS)
+
+
 @torch.no_grad()
-def glorot_normal_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Xavier-normal conv/linear weights, torch-default biases, identity BN,
-    in place."""
+def cnn_init_(model: nn.Module, name: str, generator: torch.Generator) -> nn.Module:
+    """The assessor initialisation `name` (one of CNN_INITIALIZERS) on every
+    conv/linear weight, torch-default biases, identity BN, in place."""
+    if name == "torch_default":
+        return torch_default_init_(model, generator)
+    if name not in _CNN_WEIGHT_INITS:
+        raise ValueError(f"cnn_initializer {name!r}: one of {CNN_INITIALIZERS}")
+    draw = _CNN_WEIGHT_INITS[name]
     for m in model.modules():
         if isinstance(m, (*_CONVS, nn.Linear)):
-            nn.init.xavier_normal_(m.weight, generator=generator)
+            draw(m.weight, generator)
             if m.bias is not None:
                 _default_bias_(m.bias, m.weight, generator)
         elif isinstance(m, nn.BatchNorm2d):
             nn.init.ones_(m.weight)
             _reset_bn_(m)
     return model
+
+
+def glorot_normal_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Xavier-normal conv/linear weights, torch-default biases, identity BN,
+    in place (`cnn_init_` with the shipped `glorot_normal`)."""
+    return cnn_init_(model, "glorot_normal", generator)
 
 
 @torch.no_grad()

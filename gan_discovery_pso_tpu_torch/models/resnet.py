@@ -1,5 +1,6 @@
-"""Bottleneck ResNet-50/101/152 assessors (counterpart of
-`gan_discovery_pso_tpu/models/resnet.py:38-160`).
+"""Bottleneck ResNet-50/101/152 and AlexNet assessors (counterpart of
+`gan_discovery_pso_tpu/models/resnet.py:38-160` and `AlexNetDef`,
+`alexnet_apply`, `_dropout2d_like` :164-247).
 
 Reference src/pso/util_cnn.py:81-190, quirks kept:
 - the pooling head is a global MAX pool (`AdaptiveMaxPool2d((1, 1))`,
@@ -16,6 +17,19 @@ running statistics, in train mode with the batch's and updates the running
 ones (`ops.batch_norm_train`, torch's semantics). `change_classifier_head`
 re-heads a trained assessor for transfer (the pso-inverter's binary
 fine-tune).
+
+AlexNet (reference util_cnn.py:193-249): 4 x (conv k, stride 1, pad p, with
+bias → activation → max_pool2d(2)), then fc1 → act → fc2 → act → fc3, the
+activation LeakyReLU(0.2) or ReLU (`model_cnn.network.cnn_activation`).
+Quirk kept from the JAX package: its train step applies the model without a
+dropout key, so `_dropout2d_like` returns its input and AlexNet TRAINS
+WITHOUT DROPOUT. Here dropout (elementwise, p = 0.5, after fc1 and fc2)
+runs only in train mode and only when a `generator` is passed to forward;
+`train_cnn` passes none. Parameters carry the JAX tree's names (`conv1`…
+`conv4`, `fc1`…`fc3`): the JAX package has no reference name map for it.
+With the shipped `padding: valid` and kernel 3, a 28x28 input shrinks to
+-1 at the fourth conv (`conv_sizes`), so no forward runs; use
+`padding: same` at 28x28.
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ import copy
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gan_discovery_pso_tpu_torch.models.layers import linear, torch_default_linear_
@@ -127,3 +142,68 @@ def change_classifier_head(model: ResNet, n_class: int, generator: torch.Generat
     fc = torch_default_linear_(nn.Linear(512 * _EXPANSION, n_class), generator)
     out.fc = fc.to(model.fc.weight.device, model.fc.weight.dtype)
     return out
+
+
+class AlexNetDef(NamedTuple):
+    image_channels: int = 1
+    n_class: int = 2
+    img_size: int = 64
+    kernel: int = 3
+    padding: int = 0  # the shipped config's 'valid'
+    alpha: float = 0.2  # LeakyReLU slope
+    iid_classes: tuple = ()
+    activation: str = "LeakyReLU"  # or "ReLU" (reference get_activation)
+
+    def class_to_idx(self) -> dict:
+        """Sorted IiD class labels → logit columns (util_cnn.py:204-205)."""
+        return {c: i for i, c in enumerate(sorted(self.iid_classes))}
+
+    def conv_sizes(self) -> list:
+        """Spatial size after each conv + pool (the reference takes it from a
+        dry forward, util_cnn.py:207-235)."""
+        s, sizes = self.img_size, []
+        for _ in range(4):
+            s = (s + 2 * self.padding - self.kernel + 1) // 2
+            sizes.append(s)
+        return sizes
+
+    @property
+    def to_linear(self) -> int:
+        return 256 * self.conv_sizes()[-1] ** 2
+
+
+class AlexNet(nn.Module):
+    def __init__(self, d: AlexNetDef, *, device=None, dtype=None):
+        super().__init__()
+        if d.activation not in ("ReLU", "LeakyReLU"):
+            # the reference's get_activation ValueError (util_cnn.py:54)
+            raise ValueError(d.activation)
+        kw = {"device": device, "dtype": dtype}
+        self.d = d
+        for i, (cin, cout) in enumerate(((d.image_channels, 32), (32, 64), (64, 128),
+                                         (128, 256)), start=1):
+            setattr(self, f"conv{i}", nn.Conv2d(cin, cout, d.kernel, 1, d.padding, **kw))
+        self.fc1 = nn.Linear(d.to_linear, 256, **kw)
+        self.fc2 = nn.Linear(256, 256, **kw)
+        self.fc3 = nn.Linear(256, d.n_class, **kw)
+
+    def _act(self, h: torch.Tensor) -> torch.Tensor:
+        return torch.relu(h) if self.d.activation == "ReLU" else F.leaky_relu(h, self.d.alpha)
+
+    def _dropout(self, h: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        if not self.training or generator is None:
+            return h
+        keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.5
+        return torch.where(keep, h / 0.5, torch.zeros_like(h))
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """x [N, C, H, W] → logits [N, n_class]; dropout only in train mode
+        with a `generator` (see the module's docstring)."""
+        h = x
+        for i in range(1, 5):
+            conv = getattr(self, f"conv{i}")
+            h = max_pool2d(self._act(conv2d(h, conv.weight, conv.bias, 1, self.d.padding)), 2)
+        h = h.reshape(h.shape[0], -1)
+        h = self._dropout(self._act(linear(h, self.fc1.weight, self.fc1.bias)), generator)
+        h = self._dropout(self._act(linear(h, self.fc2.weight, self.fc2.bias)), generator)
+        return linear(h, self.fc3.weight, self.fc3.bias)

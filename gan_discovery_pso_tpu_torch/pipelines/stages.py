@@ -1,17 +1,31 @@
-"""Model loaders, the inverter's training and the inversion stages
-(counterpart of `gan_discovery_pso_tpu/pipelines/stages.py`: `load_gan`
-:463, `assessor_factory` :481, `load_cnn` :610, `_inverter_epoch_viz` :646,
-`run_inverter` :670, `load_encoder` :927, `run_extractor` :954,
-`run_pso_inverter` :1002, `_regularize_snapshots_and_pickle` :1144,
-`run_regularize_inverter` :1180, `run_regularize_inverter_statistics`
-:1220).
+"""Model loaders, the CAE, classifier and assessor stages, the inverter's
+training and the inversion stages (counterpart of
+`gan_discovery_pso_tpu/pipelines/stages.py`: `run_cae` :72, `load_cae`
+:150, `run_classifiers` :167, `load_gan` :463, `assessor_factory` :481,
+`run_cnn` :507, `run_cnn_multipatient` :580, `load_cnn` :610,
+`_inverter_epoch_viz` :646, `run_inverter` :670, `load_encoder` :927,
+`run_extractor` :954, `run_pso_inverter` :1002,
+`_regularize_snapshots_and_pickle` :1144, `run_regularize_inverter` :1180,
+`run_regularize_inverter_statistics` :1220).
 
-The loaders read the flax-msgpack checkpoints the JAX package's `dcgan`,
-`cnn-multipatient` and `inverter` stages (or this package's `inverter`)
-write (`core/checkpoint.py`) and return the port's `nn.Module`s, in eval
-mode, on the requested device (the card unless the caller names another),
-built through `compat/weights.py`. The training stages of the generator and
-the assessor are later slices (ROADMAP A9, A10).
+The loaders read the flax-msgpack checkpoints that either package's `cae`,
+`dcgan`, `cnn`/`cnn-multipatient` and `inverter` stages write
+(`core/checkpoint.py`) and return the port's `nn.Module`s, in eval mode,
+on the requested device (the card unless the caller names another), built
+through `compat/weights.py`. The generator's training is a later slice
+(ROADMAP A9).
+
+The CAE stage (reference src/training/cae.py) trains the denoising
+autoencoder that every GAN metric embeds with, and writes `encoder.msgpack`
+/ `decoder.msgpack` and the encoded-samples CSVs. The classifiers stage
+(reference src/training/classifiers.py) builds the KNN battery on the CAE
+embeddings (`classifiers.msgpack`), its battery tree and error-reject
+curves. The assessor stages (reference src/training/cnn.py,
+cnn_multipatient.py) train the one-vs-all battery `model_{label}.msgpack`
+or the n-way `model.msgpack` that pso-discovery and pso-inverter read,
+ResNet-50/101/152 or AlexNet, initialised by
+`model_cnn.network.cnn_initializer`. Every forward and backward of these
+stages runs in fp32 parity.
 
 The inverter stage (reference src/training/inverter.py) trains an encoder
 against the frozen generator: the plain encoder (DCGAN init) or the AttGAN
@@ -51,6 +65,12 @@ from torch import nn
 
 from gan_discovery_pso_tpu_torch.analysis import reporting
 from gan_discovery_pso_tpu_torch.compat.weights import (
+    alexnet_state_dict,
+    alexnet_tree,
+    cae_decoder_state_dict,
+    cae_decoder_tree,
+    cae_encoder_state_dict,
+    cae_encoder_tree,
     encoder_attgan_tree,
     encoder_state_dict,
     encoder_tree,
@@ -60,10 +80,21 @@ from gan_discovery_pso_tpu_torch.compat.weights import (
     to_tensors,
 )
 from gan_discovery_pso_tpu_torch.core.checkpoint import load_pytree, restore_tree
-from gan_discovery_pso_tpu_torch.core.config import AdamConfig, PsoConfig
+from gan_discovery_pso_tpu_torch.core.config import AdamConfig, PsoConfig, cfg_default
 from gan_discovery_pso_tpu_torch.core.device import resolve_device
 from gan_discovery_pso_tpu_torch.data import train_val_split
+from gan_discovery_pso_tpu_torch.evaluation import (
+    KnnBattery,
+    compute_posterior,
+    save_battery,
+    train_classifier_battery,
+)
 from gan_discovery_pso_tpu_torch.models import (
+    AlexNet,
+    AlexNetDef,
+    CAEDecoder,
+    CAEDef,
+    CAEEncoder,
     Discriminator,
     DiscriminatorDef,
     Encoder,
@@ -74,7 +105,9 @@ from gan_discovery_pso_tpu_torch.models import (
     GeneratorDef,
     ResNet,
     ResNetDef,
+    add_noise,
     change_classifier_head,
+    cnn_init_,
     dcgan_init_,
     torch_default_init_,
 )
@@ -95,6 +128,11 @@ from gan_discovery_pso_tpu_torch.pso import (
     make_inverter_runner,
     save_particle_histories,
     swarm_init_from_positions,
+)
+from gan_discovery_pso_tpu_torch.train.cae import (
+    encode_dataset,
+    save_encoded_samples_csv,
+    train_cae,
 )
 from gan_discovery_pso_tpu_torch.train.cnn import train_cnn
 from gan_discovery_pso_tpu_torch.train.inverter import (
@@ -125,21 +163,45 @@ def load_gan(model_dir: str | Path, best: bool = True, device=None) -> Generator
 
 
 def assessor_factory(cfg, data_cfg, n_class: int):
-    """The reference get_cnn (util_cnn.py:24-38): (ResNetDef, None, None) for
-    ResNet50/101/152, the triple the JAX package returns."""
+    """The reference get_cnn (util_cnn.py:24-38): (ResNetDef, None, None)
+    for ResNet50/101/152, (AlexNetDef, None, None) for AlexNet with
+    `model_cnn.network`'s kernel, padding ('valid' → 0, else 1) and
+    activation — the triple the JAX package returns, whose init and apply
+    functions are the modules' own here."""
     name = str(cfg.model_cnn.model_name)
     iid = tuple(data_cfg.iid_classes)
     if name.startswith("ResNet"):
         return ResNetDef(name, data_cfg.channel, n_class, iid), None, None
     if name == "AlexNet":
-        raise NotImplementedError(
-            "AlexNet assessors are not ported yet (ROADMAP A3: models)")
+        net = cfg.model_cnn.get("network", {})
+        pad = 0 if str(net.get("padding", "valid")) == "valid" else 1
+        return AlexNetDef(image_channels=data_cfg.channel, n_class=n_class,
+                          img_size=data_cfg.image_size, kernel=int(net.get("kernel", 3)),
+                          padding=pad, iid_classes=iid,
+                          activation=str(net.get("cnn_activation", "LeakyReLU"))), None, None
     raise ValueError(name)
 
 
-def load_cnn(model_dir: str | Path, rdef: ResNetDef, label=None, device=None) -> ResNet:
+def build_assessor(mdef: ResNetDef | AlexNetDef, device=None) -> ResNet | AlexNet:
+    """The assessor module of `mdef` (weights not initialised)."""
+    return (AlexNet if isinstance(mdef, AlexNetDef) else ResNet)(mdef, device=device)
+
+
+def assessor_tree(model: ResNet | AlexNet) -> dict:
+    """An assessor as the JAX checkpoint's {'params', 'state'} (AlexNet has
+    no state)."""
+    sd = model.state_dict()
+    if isinstance(model, AlexNet):
+        return {"params": alexnet_tree(sd), "state": {}}
+    params, state = resnet_tree(sd)
+    return {"params": params, "state": state}
+
+
+def load_cnn(model_dir: str | Path, rdef: ResNetDef | AlexNetDef, label=None,
+             device=None) -> ResNet | AlexNet:
     """The assessor of a cnn-multipatient run (`model.msgpack`, or
-    `model_{label}.msgpack` of a cnn run: {'params', 'state'})."""
+    `model_{label}.msgpack` of a cnn run: {'params', 'state'}), built as
+    `rdef` says: a ResNet or an AlexNet."""
     device = resolve_device(device)
     name = f"model_{label}.msgpack" if label is not None else "model.msgpack"
     d = load_pytree(Path(model_dir) / name)
@@ -162,9 +224,9 @@ def load_cnn(model_dir: str | Path, rdef: ResNetDef, label=None, device=None) ->
             "resolves an AlexNet assessor — drop model_cnn.model_name="
             "AlexNet for this stage or point --path-cnn at an AlexNet run"
         )
-    net = ResNet(rdef, device=device)
-    net.load_state_dict(to_tensors(resnet_state_dict(params, state), device=device),
-                        strict=True)
+    net = build_assessor(rdef, device=device)
+    sd = resnet_state_dict(params, state) if want_resnet else alexnet_state_dict(params)
+    net.load_state_dict(to_tensors(sd, device=device), strict=True)
     return net.eval()
 
 
@@ -201,6 +263,297 @@ def _can_write(tag: str, families) -> dict:
         if not out[package]:
             print(f"[{tag}] not writing {what}: {package} is not installed")
     return out
+
+
+# -- CAE stage (reference src/training/cae.py) --------------------------------
+
+
+def load_cae(model_dir: str | Path, device=None) -> tuple[CAEEncoder, CAEDecoder]:
+    """The CAE of a cae run (`encoder.msgpack` and `decoder.msgpack`:
+    {'params', 'state'}), its latent width from the checkpoint's shapes;
+    both modules in eval mode."""
+    device = resolve_device(device)
+    enc = restore_tree(load_pytree(Path(model_dir) / "encoder.msgpack"))
+    dec = restore_tree(load_pytree(Path(model_dir) / "decoder.msgpack"))
+    d = CAEDef(int(enc["params"]["fc2"]["w"].shape[0]))
+    encoder, decoder = CAEEncoder(d, device=device), CAEDecoder(d, device=device)
+    encoder.load_state_dict(to_tensors(cae_encoder_state_dict(enc["params"], enc["state"]),
+                                       device=device), strict=True)
+    decoder.load_state_dict(to_tensors(cae_decoder_state_dict(dec["params"], dec["state"]),
+                                       device=device), strict=True)
+    return encoder.eval(), decoder.eval()
+
+
+def _cae_tree(module: nn.Module, to_tree) -> dict:
+    params, state = to_tree(module.state_dict())
+    return {"params": params, "state": state}
+
+
+def _write_embeddings(ctx: StageContext, emb, labels, emb_val, val_labels, can: dict) -> None:
+    """`encoded_samples_{train,valid}.csv`, and the 2-D latent scatters where
+    the latent is 2-D (reference cae.py:214-221, classifiers.py:150-163)."""
+    save_encoded_samples_csv(ctx.run.interim_dir / "encoded_samples_train.csv", emb, labels)
+    save_encoded_samples_csv(ctx.run.interim_dir / "encoded_samples_valid.csv", emb_val,
+                             val_labels)
+    if emb.shape[1] == 2 and can["matplotlib"]:
+        reporting.plot_latent_space(emb, labels, ctx.run.general_dir, dataset="Training")
+        reporting.plot_latent_space(emb_val, val_labels, ctx.run.general_dir,
+                                    dataset="Validation")
+
+
+def run_cae(ctx: StageContext, epochs: int | None = None
+            ) -> tuple[CAEEncoder, CAEDecoder, dict]:
+    """Train the CAE (`model_ae`, `trainer_ae`) for `epochs` (default
+    `trainer_ae.epochs`) on the IiD train split in drange (0, 1), validated
+    on the test split. Streams: `cae` (the init, then the denoising noise
+    on the stage's device), `cae_img_loss` (the noise of `img_loss.png`),
+    `epoch_{e}`. Writes `encoder.msgpack`/`decoder.msgpack` in the JAX
+    layout, both encoded-samples CSVs, the 2-D latent plots where the latent
+    is 2-D, the loss curves, `img_loss.png`, `timing` and
+    `overall_history`. Returns (encoder, decoder, history), the modules in
+    eval mode."""
+    cfg, tag = ctx.cfg, "cae"
+    d = CAEDef(latent_dim=int(cfg.model_ae.latent_space))
+    adam = AdamConfig.from_config(cfg.trainer_ae.optimizer)
+    bs = int(cfg.trainer_ae.batch_size)
+    epochs = epochs if epochs is not None else int(cfg.trainer_ae.epochs)
+    task = str(cfg.model_ae.task)
+    noise_factor = float(cfg_default(cfg.model_ae, "noise_factor", 0.3))  # 0.0 is valid
+    can = _can_write(tag, (("matplotlib", "plots (cae_training.png, train_val_loss.png, "
+                                          "img_loss.png, the latent plots)"),))
+
+    t0 = time.perf_counter()
+    ds = ctx.dataset("train", drange=(0, 1))
+    val = ctx.dataset("test", drange=(0, 1))
+    t_data = time.perf_counter() - t0
+    # drawn on the CPU, so the card and the CPU start alike
+    g = ctx.keys("cae")
+    encoder = torch_default_init_(CAEEncoder(d), g).to(ctx.device)
+    decoder = torch_default_init_(CAEDecoder(d), g).to(ctx.device)
+    t0 = time.perf_counter()
+    history = train_cae(encoder, decoder, adam, ctx.batches(ds, bs),
+                        ctx.batches(val, bs, drop_last=False), num_epochs=epochs, task=task,
+                        noise_factor=noise_factor, generator=ctx.keys("cae", ctx.device),
+                        metrics_writer=ctx.metrics("history_cae"))
+    t_train = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ctx.ckpt.save_state_dict("encoder", _cae_tree(encoder, cae_encoder_tree))
+    ctx.ckpt.save_state_dict("decoder", _cae_tree(decoder, cae_decoder_tree))
+    emb, emb_val = encode_dataset(encoder, ds.images), encode_dataset(encoder, val.images)
+    _write_embeddings(ctx, emb, ds.labels.cpu().numpy(), emb_val, val.labels.cpu().numpy(),
+                      can)
+    if can["matplotlib"]:
+        if d.latent_dim == 2:
+            def decode(z):
+                with fp32_parity(), torch.no_grad():
+                    return decoder(torch.as_tensor(z, device=ctx.device)).cpu().numpy()
+
+            reporting.plot_img_latent_space(decode, ctx.run.general_dir,
+                                            w=int(cfg.data.image_size))
+        reporting.plot_training_curves(history, ctx.run.reports_dir / "cae_training.png")
+        reporting.plot_cnn_training(history, ctx.run.plot_dir)
+        # img_loss.png (reference util_cae.py:221/278): the final model's
+        # original/noisy/denoised panel, or original/reconstructed; the
+        # noise drawn on the CPU
+        vis = val.images[:10]
+        with fp32_parity(), torch.no_grad():
+            if task == "denoising":
+                noisy = add_noise(vis.cpu(), noise_factor,
+                                  generator=ctx.keys("cae_img_loss")).to(ctx.device)
+                reporting.denoise_panel(vis.cpu().numpy(), noisy.cpu().numpy(),
+                                        decoder(encoder(noisy)).cpu().numpy(),
+                                        ctx.run.general_dir / "img_loss.png")
+            else:
+                reporting.recon_panel(vis.cpu().numpy(), decoder(encoder(vis)).cpu().numpy(),
+                                      ctx.run.general_dir / "img_loss.png")
+    ctx.run.write_timing({})  # (reference cae.py:226-231)
+    ctx.run.write_overall_history(history)
+    last = history["train_loss"][-1] if epochs else float("nan")
+    print(f"[{tag}] data {t_data:.6f}s ({ds.images.shape[0]} train, {val.images.shape[0]} "
+          f"val images), {epochs} epochs {t_train:.6f}s, train loss {last:.6f}, artifacts "
+          f"{time.perf_counter() - t0:.6f}s")
+    return encoder, decoder, history
+
+
+# -- classifier battery stage (reference src/training/classifiers.py) --------
+
+
+def run_classifiers(ctx: StageContext, encoder: CAEEncoder | None = None,
+                    cae_model_dir: str | Path | None = None) -> KnnBattery:
+    """The KNN battery (reference classifiers.py:165-239): k =
+    `model_classifiers.n_neighbors` (5) on the head of the CAE embeddings of
+    the IiD train split, the last `val_fraction` (0.2) held out. Writes
+    `classifiers.msgpack`, both encoded-samples CSVs, the battery tree
+    (each class's TEST embeddings through every classifier, positives
+    counted as p > 0.5) and the per-class error-reject curves on the
+    held-out tail. `encoder` is the CAE's, or is loaded from
+    `cae_model_dir`."""
+    tag = "classifiers"
+    if encoder is None:
+        encoder, _ = load_cae(cae_model_dir, device=ctx.device)
+    can = _can_write(tag, (("matplotlib", "plots (classifier_battery_tree.png, "
+                                          "error_reject_curve_*.png, the latent plots)"),))
+    t0 = time.perf_counter()
+    ds = ctx.dataset("train", drange=(0, 1))
+    val = ctx.dataset("test", drange=(0, 1))
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb, emb_te = encode_dataset(encoder, ds.images), encode_dataset(encoder, val.images)
+    labels, te_labels = ds.labels.cpu().numpy(), val.labels.cpu().numpy()
+    block = ctx.cfg.get("model_classifiers") or {}
+    k = int(block.get("n_neighbors", 5) or 5)  # reference classifiers.py:184
+    val_fraction = float(cfg_default(block, "val_fraction", 0.2))  # 0.0: no holdout
+    battery = train_classifier_battery(emb, labels, k=k, val_fraction=val_fraction,
+                                       device=ctx.device)
+    save_battery(ctx.run.models_dir / "classifiers.msgpack", battery)
+    t_build = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _write_embeddings(ctx, emb, labels, emb_te, te_labels, can)
+    classes = battery.classes.cpu().numpy()
+    p_te = compute_posterior(battery, emb_te).cpu().numpy()
+    activation = {int(label): (p_te[te_labels == label] > 0.5).sum(axis=0).tolist()
+                  for label in classes if (te_labels == label).any()}
+    val_size = int(len(emb) * val_fraction)
+    if can["matplotlib"]:
+        reporting.plot_battery_tree(activation, list(classes),
+                                    ctx.run.general_dir / "classifier_battery_tree.png")
+        if val_size > 0:
+            # the held-out tail of the train embeddings (reference :167,178-213)
+            p_yx = compute_posterior(battery, emb[-val_size:]).cpu().numpy()
+            for ci, label in enumerate(classes):
+                reporting.error_reject_curve(
+                    (labels[-val_size:] == label).astype(int), p_yx[:, ci],
+                    ctx.run.general_dir / f"error_reject_curve_{label}.png", label=int(label))
+    print(f"[{tag}] data {t_data:.6f}s ({len(emb)} train, {len(emb_te)} test images), "
+          f"embeddings and battery {t_build:.6f}s (k={k}, {battery.train_x.shape[0]} "
+          f"rows), posteriors and artifacts {time.perf_counter() - t0:.6f}s; battery tree "
+          f"{activation}")
+    return battery
+
+
+# -- assessor stages (reference src/training/cnn.py, cnn_multipatient.py) ----
+
+
+def _cnn_settings(ctx: StageContext, epochs: int | None) -> dict:
+    cfg = ctx.cfg
+    return {"adam": AdamConfig.from_config(cfg.trainer_cnn.optimizer),
+            "bs": int(cfg.trainer_cnn.batch_size),
+            "epochs": epochs if epochs is not None else int(cfg.trainer_cnn.epochs),
+            "early_stopping": int(cfg.trainer_cnn.early_stopping),
+            "scheduler_patience": int(cfg.trainer_cnn.scheduler.patience),
+            # reference cnn.py:170 / cnn_multipatient.py:160
+            "init": str(cfg.model_cnn.get("network", {}).get("cnn_initializer",
+                                                             "glorot_normal"))}
+
+
+def _train_assessor(ctx: StageContext, mdef, generator: torch.Generator, tr, va,
+                    settings: dict, label=None):
+    """An assessor of `mdef` initialised by `settings['init']` from
+    `generator` (on the CPU, so the card and the CPU start alike), trained
+    by `train_cnn` in fp32 parity: (model in eval mode, history, seconds)."""
+    t0 = time.perf_counter()
+    model = cnn_init_(build_assessor(mdef), settings["init"], generator).to(ctx.device)
+    bs = settings["bs"]
+    with fp32_parity():
+        model, history, _best = train_cnn(
+            model, mdef, settings["adam"], ctx.batches(tr, bs),
+            ctx.batches(va, bs, drop_last=False), num_epochs=settings["epochs"],
+            early_stopping=settings["early_stopping"],
+            scheduler_patience=settings["scheduler_patience"], label=label)
+    return model, history, time.perf_counter() - t0
+
+
+@torch.no_grad()
+def battery_positives(models: list, images: torch.Tensor, chunk: int = 256) -> list:
+    """How many of `images` each model flags positive (argmax == 1), the
+    images `chunk` at a time in eval mode and fp32 parity (reference
+    cnn.py:211-246)."""
+    counts = [0] * len(models)
+    with fp32_parity():
+        for i in range(0, images.shape[0], chunk):
+            x = images[i:i + chunk]
+            for j, model in enumerate(models):
+                counts[j] += int(torch.argmax(model.eval()(x), dim=1).sum())
+    return counts
+
+
+def _last(history: dict, key: str) -> float:
+    return history[key][-1] if history[key] else float("nan")
+
+
+def run_cnn(ctx: StageContext, epochs: int | None = None, classes=None) -> dict:
+    """The one-vs-all battery (reference cnn.py:154-246): per class, a
+    binary assessor (`model_cnn`, from the stream `cnn_{label}`/`init`)
+    trained on y == label over the train split (80/20), saved as
+    `model_{label}.msgpack`, with its curves (`cnn_{label}.png`,
+    `training_plot/*_{label}.png`); then every member runs over each
+    class's positive validation images and the battery tree counts what
+    each flags. Returns {label: model}."""
+    tag = "cnn"
+    settings = _cnn_settings(ctx, epochs)
+    classes = tuple(classes if classes is not None else ctx.data_cfg.iid_classes)
+    can = _can_write(tag, (("matplotlib", "plots (cnn_*.png, train_val_*.png, "
+                                          "classifier_battery_tree.png)"),))
+    t0 = time.perf_counter()
+    ds = ctx.dataset("train", drange=(0, 1))
+    tr, va = train_val_split(ds, 0.2)
+    print(f"[{tag}] data {time.perf_counter() - t0:.6f}s ({tr.images.shape[0]} train, "
+          f"{va.images.shape[0]} val images)")
+    models, histories = {}, {}
+    for label in classes:
+        mdef = assessor_factory(ctx.cfg, ctx.data_cfg, 2)[0]
+        model, history, seconds = _train_assessor(
+            ctx, mdef, ctx.keys.child(f"cnn_{label}")("init"), tr, va, settings, label=label)
+        ctx.ckpt.save_state_dict(f"model_{label}", assessor_tree(model))
+        if can["matplotlib"]:
+            reporting.plot_training_curves(history, ctx.run.reports_dir / f"cnn_{label}.png")
+            reporting.plot_cnn_training(history, ctx.run.plot_dir, label=label)
+        models[label], histories[label] = model, history
+        print(f"[{tag}] class {label}: {len(history['train_loss'])} epochs {seconds:.6f}s, "
+              f"val loss {_last(history, 'val_loss'):.6f}")
+    ctx.run.write_timing({})  # (reference cnn.py:198-205)
+    ctx.run.write_overall_history(histories)
+
+    t0 = time.perf_counter()
+    members = [models[label] for label in classes]
+    activation = {int(label): battery_positives(members, va.images[va.labels == label])
+                  for label in classes}
+    if can["matplotlib"]:
+        reporting.plot_battery_tree(activation, list(classes),
+                                    ctx.run.general_dir / "classifier_battery_tree.png")
+    print(f"[{tag}] battery evaluation {time.perf_counter() - t0:.6f}s; battery tree "
+          f"{activation}")
+    return models
+
+
+def run_cnn_multipatient(ctx: StageContext, epochs: int | None = None):
+    """The n-way assessor over the IiD classes (reference
+    cnn_multipatient.py:151-193), from the stream `cnn_multi`, trained on
+    the train split (80/20) and saved as `model.msgpack`, the file
+    pso-discovery, pso-inverter and the adversarial inverter read; its
+    curves, `timing` and `overall_history`. Returns (model, its def)."""
+    tag = "cnn_multipatient"
+    settings = _cnn_settings(ctx, epochs)
+    mdef = assessor_factory(ctx.cfg, ctx.data_cfg, len(ctx.data_cfg.iid_classes))[0]
+    can = _can_write(tag, (("matplotlib", "plots (cnn_multipatient.png, train_val_*.png)"),))
+    t0 = time.perf_counter()
+    ds = ctx.dataset("train", drange=(0, 1))
+    tr, va = train_val_split(ds, 0.2)
+    t_data = time.perf_counter() - t0
+    model, history, seconds = _train_assessor(ctx, mdef, ctx.keys("cnn_multi"), tr, va,
+                                              settings)
+    ctx.ckpt.save_state_dict("model", assessor_tree(model))
+    if can["matplotlib"]:
+        reporting.plot_training_curves(history, ctx.run.reports_dir / "cnn_multipatient.png")
+        reporting.plot_cnn_training(history, ctx.run.plot_dir)
+    ctx.run.write_timing({})  # (reference cnn_multipatient.py:186-193)
+    ctx.run.write_overall_history(history)
+    print(f"[{tag}] data {t_data:.6f}s ({tr.images.shape[0]} train, {va.images.shape[0]} val "
+          f"images), {len(history['train_loss'])} epochs {seconds:.6f}s, val loss "
+          f"{_last(history, 'val_loss'):.6f}")
+    return model, mdef
 
 
 # -- inverter training (reference src/training/inverter.py) -------------------
@@ -445,8 +798,7 @@ def _fine_tune(ctx: StageContext, assessor: ResNet, bdef: ResNetDef, ood_patient
     print(f"[pso_inverter] fine-tune: data {t_data:.6f}s ({tr.images.shape[0]} train, "
           f"{va.images.shape[0]} val images), {len(history['train_loss'])} epochs "
           f"{time.perf_counter() - t0 - t_data:.6f}s")
-    params, state = resnet_tree(fine.state_dict())
-    ctx.ckpt.save_state_dict(f"model_{ood_patient}", {"params": params, "state": state})
+    ctx.ckpt.save_state_dict(f"model_{ood_patient}", assessor_tree(fine))
     # fine-tune figures (reference pso_inverter.py:263)
     if reporting.host_has("matplotlib"):
         reporting.plot_cnn_training(history, ctx.run.plot_dir, label=ood_patient)
@@ -484,6 +836,9 @@ def run_pso_inverter(
     hp = PsoConfig.from_config(cfg.trainer_pso_inverter)
     control = str(cfg.trainer_pso_inverter.get("control_pso_fitness", OPTIMIZE_IN))
     tag = "pso_inverter"
+    if not isinstance(cnn_def, ResNetDef):
+        # the re-head replaces a ResNet's fc, as the JAX stage's does
+        raise ValueError(f"pso-inverter fine-tunes a ResNet assessor, not {cnn_def!r}")
 
     # --- phase 1: the binary assessor for this patient
     t_phase1 = time.perf_counter()

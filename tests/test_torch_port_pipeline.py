@@ -299,6 +299,52 @@ def test_stage_without_pandas_matplotlib_or_pil(upstream, port_models, stages, m
         "particles_iid_class_0.npz", "particles_iid_class_2.npz"]
 
 
+@pytest.mark.parametrize("stage", ["cae", "classifiers", "cnn"])
+def test_new_stage_without_pandas_matplotlib_or_pil(stage, monkeypatch, capsys, tmp_path):
+    """The cae, classifiers and cnn stages on a host without pandas,
+    matplotlib or PIL: one line of the stage's naming matplotlib (the only
+    package they would use), every plot left out, the checkpoints, CSVs and
+    histories written."""
+    from test_torch_port_assessor import write_idx
+
+    from gan_discovery_pso_tpu_torch.pipelines import run_cae, run_classifiers, run_cnn
+
+    monkeypatch.setattr(reporting, "host_has", lambda package: package == "numpy")
+    write_idx(tmp_path / "data" / "MNIST" / "raw")
+    sets = {"data.data_dir": str(tmp_path / "data"), "trainer_ae.batch_size": 16,
+            "trainer_cnn.batch_size": 16, "model_ae.latent_space": 6,
+            "model_cnn.model_name": "AlexNet", "model_cnn.network.padding": "same",
+            **{f"data.{k}_dir": str(tmp_path / k) for k in ("reports", "model", "interim")}}
+    make = lambda name: StageContext.create(CFG, name, overrides=sets, device="cpu")  # noqa: E731
+    encoder = run_cae(make("cae"), epochs=1)[0] if stage != "cnn" else None
+    capsys.readouterr()
+    ctx = make(stage)
+    if stage == "cae":
+        run_cae(ctx, epochs=1)
+    elif stage == "classifiers":
+        run_classifiers(ctx, encoder=encoder)
+    else:
+        run_cnn(ctx, epochs=1, classes=(0, 2))
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"[{stage}] not writing")]
+    assert len(lines) == 1 and lines[0].endswith("matplotlib is not installed")
+    written = sorted(p.relative_to(ctx.run.reports_dir).as_posix()
+                     for p in ctx.run.reports_dir.rglob("*") if p.is_file())
+    want = {"cae": ["configuration.yaml", "general/overall_history.json",
+                    "general/overall_history.pkl", "general/timing.pkl", "history_cae.jsonl",
+                    "timing.json"],
+            "classifiers": ["configuration.yaml"],
+            "cnn": ["configuration.yaml", "general/overall_history.json",
+                    "general/overall_history.pkl", "general/timing.pkl", "timing.json"]}
+    assert [w for w in written if w != "log.txt"] == want[stage]
+    files = {"cae": ["encoder.msgpack", "decoder.msgpack"],
+             "classifiers": ["classifiers.msgpack"], "cnn": ["model_0.msgpack", "model_2.msgpack"]}
+    assert all((ctx.run.models_dir / f).exists() for f in files[stage])
+    if stage != "cnn":
+        assert sorted(p.name for p in ctx.run.interim_dir.iterdir()) == [
+            "encoded_samples_train.csv", "encoded_samples_valid.csv"]
+
+
 @pytest.mark.parametrize("program", ["chunked", "fastest"])
 def test_program_key_chooses_nothing_on_the_port(upstream, port_models, stages, program):
     """trainer_pso.program=chunked runs the batched stage's one loop (the
