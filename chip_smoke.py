@@ -41,7 +41,15 @@ ResNet-50s on 2048 images; an AlexNet cnn-multipatient under the batched
 runner, 50 launches each; every checkpoint read back bit-equal; then
 `evaluate_gan_epoch` over 12,800 samples of G(64), B2 10 launches at
 [1280, 784], FID, IS, rec and one evaluation profiled; 1280 samples on the
-card against the CPU), then times
+card against the CPU), runs the DCGAN and the VQ-VAE stages through their
+CLI (the dcgan and vq-vae phase: `dcgan` at the shipped widths, z 10, f 64,
+batch 128, for 2 epochs on that phase's CAE and battery, B2 10 launches an
+epoch, FID, IS and rec finite; 1 + 1 resumed epochs byte-equal to the 2;
+5 steady train steps profiled and one step on the card against the CPU;
+`vqvae` at embedding 100 and K 256, 1 epoch, its decoder the main path's
+G and its codebook the pipeline phase's batched particles, checked at init,
+its decoder bit-equal to G after training and a rerun byte-equal;
+`pixelcnn-prior` on it, 1 epoch; no port kernel in the last two), then times
 each kernel at the main path's shape and at a large one (device µs per
 launch from the profiler over the last 50 of 60 calls in a session, as
 the profiler loses the kernel events of a session's first calls; beside
@@ -62,6 +70,7 @@ from __future__ import annotations
 import itertools
 import json
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -99,7 +108,7 @@ SWARM_TIMED = ((N_CLASSES, N_PARTICLES, DIM), (1, 4096, 1024), (1, INV_PARTICLES
 # B2 [N, F]: the main path's images, short unaligned and odd rows, many rows,
 # rows in registers at every team size (8, 4, 2, 1 warps) and register
 # depth (1 to 32 float4 a thread), long rows (one CTA each; 65536 = a
-# 256x256 CLARO slice, 4099 odd), the 2-D landscape's 100x100 mesh, and the
+# 256x256 CLARO slice, 4099 odd), the 2-D landscape's 100x100 mesh, the
 # GAN evaluation sampler's chunk of 1280 images
 RESCALE_SHAPES = ((N_CLASSES * N_PARTICLES, 784), (9, 300), (5, 301), (4096, 784),
                   (600, 1500), (1500, 2049), (3000, 203), (2100, 4000),
@@ -1375,7 +1384,8 @@ def evaluation_numbers(res) -> dict:
             "rec": float(res.rec_loss_syn)}
 
 
-def assessor_eval_phase(models, device, kernels, card: str, sets=()) -> dict:
+def assessor_eval_phase(models, device, kernels, card: str, sets=(),
+                        keep_upstream: Path | None = None) -> dict:
     """The assessor and evaluation stages through the CLI on the synthetic
     digits, at the shipped widths in fp32 parity: `cae` (latent 10, batch
     128, 1 epoch; both files read back bit-equal), `classifiers` on it
@@ -1391,8 +1401,11 @@ def assessor_eval_phase(models, device, kernels, card: str, sets=()) -> dict:
     [1280, 784]; FID, IS, rec, wall time, one evaluation profiled) and 1280
     images on the card against the CPU. The stages themselves launch no
     port kernel. Returns each run's launches. `sets` adds config overrides
-    (a rehearsal on the CPU cuts the data)."""
+    (a rehearsal on the CPU cuts the data). The `cae` and `classifiers`
+    models dirs are copied to `keep_upstream/{cae,classifiers}`, where
+    given."""
     import copy
+    import shutil
     import tempfile
 
     import torch
@@ -1570,6 +1583,9 @@ def assessor_eval_phase(models, device, kernels, card: str, sets=()) -> dict:
                                      f"{cpu_n[key]} (rtol 1e-4, atol {atol[key]})")
         report["evaluate_card_vs_cpu"] = {"card": card_n, "cpu": cpu_n, "fid_traces": traces,
                                           **agree}
+        if keep_upstream is not None:
+            shutil.copytree(cae["model"], keep_upstream / "cae")
+            shutil.copytree(cls["model"], keep_upstream / "classifiers")
 
     for label, launches in out.items():
         if label in ("cae", "classifiers", "cnn_multipatient", "cnn", "alexnet") and \
@@ -1578,6 +1594,281 @@ def assessor_eval_phase(models, device, kernels, card: str, sets=()) -> dict:
                                  "stage's path")
     log(f"assessor and evaluation stages ({card}): " + json.dumps(report))
     log(f"assessor and evaluation phase: {time.perf_counter() - t_phase:.6f} s ({card})")
+    return out
+
+
+VQ_CFG = ROOT / "configs" / "vqvae.yaml"
+GAN_EPOCHS = 2  # the dcgan stage's run here; configs/dcgan_mnist.yaml trains 100
+
+
+def gan_step_card_vs_cpu(device, cfg) -> dict:
+    """One DCGAN train step at the config's widths (z, f, batch) from
+    torch-default-init G and D (a DCGAN-init G's images are flat in z) and
+    injected draws, in fp32 parity, on the card and on the CPU, and on the
+    CPU in float64 as the reference:
+    - both losses, card vs CPU, within rtol 1e-4;
+    - the step's gradients (G's of the G loss, D's of the D loss), every
+      entry: per tensor, the card's largest difference from float64 at
+      most 4 times the CPU's own (fp32 rounding grows through the
+      train-mode BNs and through D's Adam step, whose sign flips for
+      gradients at rounding level, before G's loss reads D);
+    - the updated weights, every entry: w0 − lr·g/(|g| + eps) of the side's
+      own gradient g within rtol 1e-4 (atol 1e-7), Adam's first step.
+    Returns the losses, each tensor's largest gradient error from float64
+    (card, CPU) and the largest weight difference from that update."""
+    import copy
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import AdamConfig
+    from gan_discovery_pso_tpu_torch.models import (
+        Discriminator, DiscriminatorDef, Generator, GeneratorDef, torch_default_init_)
+    from gan_discovery_pso_tpu_torch.ops import conv as conv_ops
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.train.common import make_optimizer
+    from gan_discovery_pso_tpu_torch.train.dcgan import GanTrainState, make_gan_train_step
+
+    z_dim, bs = int(cfg.trainer_gan.z_dim), int(cfg.trainer_gan.batch_size)
+    rng = torch.Generator().manual_seed(SEED + 20)
+    gen = torch_default_init_(Generator(GeneratorDef(z_dim, 1, int(
+        cfg.model_gan.network.units_gen))), rng)
+    disc = torch_default_init_(Discriminator(DiscriminatorDef(1, int(
+        cfg.model_gan.network.units_disc))), rng)
+    real = torch.rand((bs, 1, 28, 28), generator=rng) * 2 - 1
+    draws = (torch.randn((bs, z_dim, 1, 1), generator=rng),
+             0.7 + 0.5 * torch.rand((bs,), generator=rng), 0.3 * torch.rand((bs,), generator=rng))
+    adam = AdamConfig.from_config(cfg.trainer_gan.optimizer)
+    if adam.weight_decay:
+        raise AssertionError(f"GAN step card vs CPU: the check assumes no weight decay, not "
+                             f"{adam.weight_decay}")
+    w0 = {f"{n}.{k}": v.detach().double() for n, mod in (("G", gen), ("D", disc))
+          for k, v in mod.named_parameters()}
+    finish = conv_ops._finish
+    out = {}
+    for where, dev, dtype in (("card", device, torch.float32),
+                              ("cpu", torch.device("cpu"), torch.float32),
+                              ("float64", torch.device("cpu"), torch.float64)):
+        g, d = copy.deepcopy(gen).to(dev, dtype), copy.deepcopy(disc).to(dev, dtype)
+        state = GanTrainState(g, d, make_optimizer(adam, list(g.parameters())),
+                              make_optimizer(adam, list(d.parameters())))
+        if dtype == torch.float64:  # the port's convs return fp32 by design
+            conv_ops._finish = lambda o, b: o if b is None else o + b.reshape(1, -1, 1, 1)
+        try:
+            with fp32_parity():
+                m = make_gan_train_step(state)(real.to(dev, dtype),
+                                               tuple(t.to(dev, dtype) for t in draws))
+        finally:
+            conv_ops._finish = finish
+        mods = (("G", g), ("D", d))
+        out[where] = ({k: float(v) for k, v in m.items()},
+                      {f"{n}.{k}": v.detach().double().cpu() for n, mod in mods
+                       for k, v in mod.named_parameters()},
+                      {f"{n}.{k}": v.grad.detach().double().cpu() for n, mod in mods
+                       for k, v in mod.named_parameters()})
+    (card_m, card_w, card_g), (cpu_m, cpu_w, cpu_g), (_, _, ref_g) = (
+        out["card"], out["cpu"], out["float64"])
+    for k in cpu_m:
+        if not np.isclose(card_m[k], cpu_m[k], rtol=1e-4, atol=0):
+            raise AssertionError(f"GAN step card vs CPU: {k} {card_m[k]} vs {cpu_m[k]}")
+    ratios, worst_w = {}, 0.0
+    for k, ref in ref_g.items():
+        err_card = float((card_g[k] - ref).abs().max())
+        err_cpu = float((cpu_g[k] - ref).abs().max())
+        if err_card > 4 * err_cpu:
+            raise AssertionError(f"GAN step card vs CPU: gradient of {k} off float64 by "
+                                 f"{err_card}, > 4 x the CPU's {err_cpu}")
+        ratios[k] = [err_card, err_cpu]
+        for side, w, grad in (("card", card_w, card_g), ("cpu", cpu_w, cpu_g)):
+            want = w0[k] - adam.lr * grad[k] / (grad[k].abs() + adam.epsilon)
+            torch.testing.assert_close(w[k], want, rtol=1e-4, atol=1e-7,
+                                       msg=f"GAN step: {side} {k} is not Adam's first step")
+            worst_w = max(worst_w, float((w[k] - want).abs().max()))
+    return {"losses_card": card_m, "losses_cpu": cpu_m, "losses_float64": out["float64"][0],
+            "grad_max_err_from_float64_card_cpu": ratios, "max_abs_weight_diff_from_update": worst_w}
+
+
+def gan_vqvae_phase(models, device, kernels, card: str, upstream: Path, pso_interim: Path,
+                    sets=()) -> dict:
+    """The DCGAN and the VQ-VAE family through the CLI on the synthetic
+    digits, fp32 parity:
+    1. `dcgan` at configs/dcgan_mnist.yaml's widths (z 10, G and D f 64,
+       batch 128, Adam 1e-3 (0.5, 0.99), label smoothing, 12,800 samples an
+       evaluation) for GAN_EPOCHS epochs on the assessor phase's CAE and
+       battery (`upstream`): B2 10 launches an epoch (at [1280, 784] in
+       the evaluation), B1 0; FID, IS
+       and rec finite; each epoch's training, evaluation and artifact
+       seconds; best_g read back into G;
+    2. `dcgan --epochs GAN_EPOCHS-1`, then `--resume-id 1 --epochs 1` in one
+       run dir:
+       checkpoint_g.msgpack and history_gan.msgpack byte-equal to step 1's;
+    3. 5 steady train steps profiled (wall ms, device idle share), and one
+       step on the card against the CPU (`gan_step_card_vs_cpu`);
+    4. `vqvae` at configs/vqvae.yaml's widths (embedding 100, K 256, batch
+       128) for 1 epoch, the decoder the main path's G (z 100) as a
+       JAX-format checkpoint, the codebook the pipeline phase's batched
+       particles (`pso_interim`: 8 classes x 32 = 256 rows; the IiD classes
+       set to the pipeline's): the codebook at init equal to the particles
+       bit for bit, the decoder bit-equal to G after training, a rerun's
+       model_1 and best_vqvae byte-equal, near-ties of the codes counted;
+    5. `pixelcnn-prior` on that run for 1 epoch.
+    None of 4-5 launches a port kernel. Returns each run's launches."""
+    import tempfile
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import AdamConfig, load_config
+    from gan_discovery_pso_tpu_torch.core.checkpoint import load_pytree
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+    from gan_discovery_pso_tpu_torch.data import epoch_batches, load_mnist
+    from gan_discovery_pso_tpu_torch.models import DiscriminatorDef, GeneratorDef
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.pipelines import load_gan, load_vqvae
+    from gan_discovery_pso_tpu_torch.pipelines import stages as stage_module
+    from gan_discovery_pso_tpu_torch.pso import load_final_particle_positions
+    from gan_discovery_pso_tpu_torch.train.dcgan import gan_init, make_gan_train_step
+
+    t_phase = time.perf_counter()
+    out, report = {}, {}
+    names = [k.__name__ for k in kernels]
+    none = dict.fromkeys(names, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp_name:
+        tmp = Path(tmp_name)
+        data = {"data.data_dir": str(tmp / "no_mnist"), **dict(sets)}
+        cfg = load_config(CFG, overrides=data)
+        data_cfg = DataConfig.from_config(cfg.data)
+        bs = int(cfg.trainer_gan.batch_size)
+        # the stage's n_synthetic is batch x 100 (12,800), sampled in chunks of 1280
+        per_epoch = {**none, **({"rescale01_rows": -(-bs * 100 // 1280)}
+                                if "rescale01_rows" in names else {})}
+        paths = ("--path-cae", str(upstream / "cae"), "--path-classifiers",
+                 str(upstream / "classifiers"))
+
+        def stage(label, name, *args, keep=None, key=None, **extra):
+            run = cli_stage(tmp, label, name, device, kernels, *args, sets={**data, **extra},
+                            keep=keep)
+            tag = f"[{name.replace('-', '_')}]"  # the stage's own lines
+            lines = [ln for ln in run["log"].splitlines()
+                     if ln.startswith(tag) and "done →" not in ln]
+            report[key or label] = {"stage_s": run["wall"], "launches": run["launches"],
+                                    "log": lines}
+            return run
+
+        def dcgan_files(run) -> list:
+            return [(run["model"] / "checkpoint_g.msgpack").read_bytes(),
+                    (run["reports"] / "general" / "history_gan.msgpack").read_bytes()]
+
+        # 1. dcgan at the shipped widths
+        gan = stage("dcgan", "dcgan", "--epochs", str(GAN_EPOCHS), *paths, keep="run_dcgan")
+        out["dcgan"] = gan["launches"]
+        expect_launches({**gan, "label": "dcgan"},
+                        {k: GAN_EPOCHS * v for k, v in per_epoch.items()})
+        _state, history = gan["value"]
+        for key in ("fid", "is", "rec_loss_syn", "loss_gen", "loss_disc"):
+            if not (len(history[key]) and np.isfinite(history[key]).all()):
+                raise AssertionError(f"dcgan: {key} not finite: {history[key]}")
+        epochs = [re.findall(r"([0-9.]+)s", ln) for ln in report["dcgan"]["log"]
+                  if " train steps " in ln]
+        report["dcgan"]["epochs"] = [
+            {"train_s": float(a), "evaluation_s": float(b), "artifacts_s": float(c)}
+            for a, b, c in epochs]
+        report["dcgan"]["history"] = {k: history[k] for k in ("fid", "is", "rec_loss_syn")}
+        gen_best = load_gan(gan["model"], device=device)
+        check_loaded(_state.gen, gen_best, "best_g.msgpack (dcgan)")
+
+        # 2. GAN_EPOCHS - 1 epochs and 1 resumed against the single run
+        first = stage("dcgan_resume", "dcgan", "--epochs", str(GAN_EPOCHS - 1), *paths)
+        resumed = stage("dcgan_resume", "dcgan", "--epochs", "1", "--resume-id", "1", *paths,
+                        key="dcgan_resumed")
+        for label, run, n in (("dcgan_resume", first, GAN_EPOCHS - 1),
+                              ("dcgan_resumed", resumed, 1)):
+            out[label] = run["launches"]
+            expect_launches({**run, "label": label}, {k: n * v for k, v in per_epoch.items()})
+        same = [a == b for a, b in zip(dcgan_files(resumed), dcgan_files(gan))]
+        if not all(same):
+            raise AssertionError(f"dcgan {GAN_EPOCHS - 1} + 1 resumed epochs differ from "
+                                 f"{GAN_EPOCHS} epochs in (checkpoint_g, history_gan): {same}")
+        report["resume_bit_equal"] = True
+
+        # 3. 5 steady steps profiled; one step on the card against the CPU
+        ds = load_mnist(data["data.data_dir"], "train", classes=data_cfg.iid_classes,
+                        drange=(-1, 1), device=device)
+        st = gan_init(torch.Generator().manual_seed(SEED + 21),
+                      GeneratorDef(int(cfg.trainer_gan.z_dim), 1,
+                                   int(cfg.model_gan.network.units_gen)),
+                      DiscriminatorDef(1, int(cfg.model_gan.network.units_disc)),
+                      AdamConfig.from_config(cfg.trainer_gan.optimizer), device=device)
+        step = make_gan_train_step(st)
+        rng = torch.Generator(device=device).manual_seed(SEED + 22)
+        batches = [(x, rng) for x, _y in itertools.islice(
+            epoch_batches(ds, bs, torch.Generator().manual_seed(SEED)), 7)]
+        report["gan_step_profiled"] = profile_steps(step, batches)
+        report["gan_step_card_vs_cpu"] = gan_step_card_vs_cpu(device, cfg)
+
+        # 4. vqvae: G (z 100) as the frozen decoder, the batched particles
+        dirs = write_checkpoints(tmp / "upstream", 1, gen=models[0])
+        vq_sets = {"data.iid_classes": list(data_cfg.iid_classes), "data.ood_classes": [1, 5]}
+        vq_cfg = load_config(VQ_CFG, overrides={**data, **vq_sets})
+        classes = DataConfig.from_config(vq_cfg.data).iid_classes
+        particles = np.concatenate([load_final_particle_positions(pso_interim, c, "iid")
+                                    for c in classes])
+        inits = []
+        real_init = stage_module.vqvae_init
+
+        def recording(*a, **kw):
+            state = real_init(*a, **kw)
+            inits.append(state.model.codebook.detach().cpu().numpy().copy())
+            return state
+
+        stage_module.vqvae_init = recording
+        try:
+            vq = [stage(label, "vqvae", "--cfg", str(VQ_CFG), "--epochs", "1", "--path-gan",
+                        str(dirs["gan"]), "--path-pso", str(pso_interim), keep="run_vqvae",
+                        **vq_sets) for label in ("vqvae", "vqvae_rerun")]
+        finally:
+            stage_module.vqvae_init = real_init
+        if not (len(inits) == 2 and particles.shape == inits[0].shape
+                and all(np.array_equal(c, particles) for c in inits)):
+            raise AssertionError(f"vqvae: the initial codebook {inits[0].shape} is not the "
+                                 f"particles {particles.shape} bit for bit")
+        model = load_vqvae(vq[0]["model"], vq_cfg, device=device)
+        gen_sd = models[0].state_dict()
+        for k, v in model.decoder.state_dict().items():
+            if not k.endswith("num_batches_tracked") and not torch.equal(v, gen_sd[k]):
+                raise AssertionError(f"vqvae: decoder {k} differs from G after training")
+        for name in ("model_1.msgpack", "best_vqvae.msgpack"):
+            if (vq[0]["model"] / name).read_bytes() != (vq[1]["model"] / name).read_bytes():
+                raise AssertionError(f"vqvae: the rerun's {name} differs")
+        val = load_mnist(data["data.data_dir"], "test", classes=classes, drange=(-1, 1),
+                         device=device)
+        with fp32_parity(), torch.no_grad():
+            z_e = model.encoder(val.images, False).flatten(1)
+        ties = near_tie_rows(z_e, model.codebook.detach(), 1)
+        _vq_state, vq_hist, _d = vq[0]["value"]
+        report["vqvae_checks"] = {
+            "codebook": list(particles.shape), "codebook_init_equals_particles": True,
+            "decoder_equals_G": True, "rerun_bit_equal": True,
+            "near_tie_rows_of_test_codes": int(ties.sum()), "rows": int(ties.numel()),
+            "history": vq_hist}
+        for label in ("vqvae", "vqvae_rerun"):
+            out[label] = report[label]["launches"]
+
+        # 5. pixelcnn-prior on the vqvae run
+        pix = stage("pixelcnn_prior", "pixelcnn-prior", "--cfg", str(VQ_CFG), "--epochs", "1",
+                    "--path-vqvae", str(vq[0]["model"]), **vq_sets)
+        out["pixelcnn_prior"] = pix["launches"]
+        ck = load_pytree(pix["model"] / "pixelcnn.msgpack")
+        rows = (pix["reports"] / "history_pixelcnn.jsonl").read_text().splitlines()
+        if int(ck["def"]["input_dim"]) != particles.shape[0] or not np.isfinite(
+                json.loads(rows[0])["train_loss"]):
+            raise AssertionError(f"pixelcnn-prior: def {ck['def']}, history {rows}")
+        report["pixelcnn_prior"]["def"] = {k: int(v) for k, v in ck["def"].items()}
+
+    for label in ("vqvae", "vqvae_rerun", "pixelcnn_prior"):
+        if out[label] != none:
+            raise AssertionError(f"{label}: launches {out[label]}; no port kernel is on this "
+                                 "stage's path")
+    log(f"dcgan and vq-vae stages ({card}): " + json.dumps(report))
+    log(f"dcgan and vq-vae phase: {time.perf_counter() - t_phase:.6f} s ({card})")
     return out
 
 
@@ -1641,13 +1932,16 @@ def main() -> int:
     log(f"fp32 runs identical; bf16 gate max |g32 - g16| = {gate:.3e} <= {GATE}")
     log(f"evals/s warm: fp32 {evals / s32:.0f}, bf16 {evals / s16:.0f} ({card})")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pso_") as keep:
-        pso_interim = Path(keep) / "batched"
+        pso_interim, upstream = Path(keep) / "batched", Path(keep) / "assessor"
         pipeline_launches = pipeline_phase(models, device, KERNELS, card,
                                            keep_interim=pso_interim)
         pipeline_launches.update(inverter_phase(models, device, KERNELS, card))
         pipeline_launches.update(inverter_training_phase(models, device, KERNELS, card,
                                                          pso_interim))
-    pipeline_launches.update(assessor_eval_phase(models, device, KERNELS, card))
+        pipeline_launches.update(assessor_eval_phase(models, device, KERNELS, card,
+                                                     keep_upstream=upstream))
+        pipeline_launches.update(gan_vqvae_phase(models, device, KERNELS, card, upstream,
+                                                 pso_interim))
     prof = profile_main_path(models, device, KERNELS)
     log("profile fp32 main path: " + json.dumps(prof))
     log("profile bf16 main path: "

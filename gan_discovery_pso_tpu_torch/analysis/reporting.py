@@ -10,7 +10,10 @@ scatters, the 2-D fitness landscape, GIFs and image grids (counterpart of
 `plot_regularize_inverter_losses` :274, `plot_phase_losses` :677,
 `recon_panel` :709), of the CAE and the classifier battery
 (`denoise_panel` :256, `plot_latent_space` :560, `plot_img_latent_space`
-:581, `plot_battery_tree` :606, `error_reject_curve` :966).
+:581, `plot_battery_tree` :606, `error_reject_curve` :966), of the DCGAN
+(`plot_gan_training` :176, `plot_posterior_histograms` :291,
+`plot_posterior_polarization` :778) and of the VQ-VAE
+(`plot_vqvae_losses` :215).
 
 matplotlib and PIL are imported inside the writers, so the package imports
 on a host that lacks them; the stage asks `host_has` before it calls a
@@ -328,6 +331,127 @@ def plot_training_curves(history: dict, out_path, title="training"):
     _savefig(fig, out_path, 200)
     plt.close(fig)
     return Path(out_path)
+
+
+def plot_gan_training(history: dict, out_dir) -> list:
+    """The GAN's training figures (reference util_report_gan.py:9-45), one
+    per axis, so that per-step losses and per-epoch metrics never share an
+    x-axis: `train_loss.png` (loss_gen and loss_disc against steps),
+    `fid.png`, `is.png`, `rec_loss_synthetic.png` (against epochs)."""
+    plt = _plt()
+    out_dir = Path(out_dir)
+    paths = []
+    if history.get("loss_gen") and history.get("loss_disc"):
+        fig, ax = plt.subplots(figsize=(8, 6))
+        ax.plot(history["loss_gen"], label="loss_gen", color="r")
+        ax.plot(history["loss_disc"], label="loss_disc", color="b")
+        ax.set_title("Training G and D loss")
+        ax.set_xlabel("Steps")
+        ax.set_ylabel("Losses")
+        ax.legend()
+        _savefig(fig, out_dir / "train_loss.png", 200)
+        plt.close(fig)
+        paths.append(out_dir / "train_loss.png")
+    for key, fname, title, ylab in (
+        ("fid", "fid.png", "Frechet Inception Distance", "fid"),
+        ("is", "is.png", "Inception Score", "is"),
+        # the reference's file name (util_report_gan.py:47), not the key
+        ("rec_loss_syn", "rec_loss_synthetic.png",
+         "Reconstruction Loss Synthetic Samples", "Loss"),
+    ):
+        series = [v for v in history.get(key, []) if v is not None]
+        if series:
+            fig, ax = plt.subplots(figsize=(8, 6))
+            ax.plot(series, label=key, color="r")
+            ax.set_title(title)
+            ax.set_xlabel("epochs")
+            ax.set_ylabel(ylab)
+            ax.legend()
+            _savefig(fig, out_dir / fname, 200)
+            plt.close(fig)
+            paths.append(out_dir / fname)
+    return paths
+
+
+def plot_posterior_histograms(stats: dict, out_dir, epoch) -> list:
+    """Per-epoch histogram and density pairs of the posterior energy and
+    variance (reference plot_histogram, util_gan_evaluation.py:167-192):
+    `hist_{var}_{epoch}.png` and `kde_{var}_{epoch}.png`, bins of 0.1
+    (energy) and 0.01 (variance); seaborn's histplot(kde=True) is a density
+    histogram and scipy's gaussian_kde here."""
+    from scipy.stats import gaussian_kde
+
+    plt = _plt()
+    out_dir = Path(out_dir)
+    paths = []
+    widths = {"energy": 0.1, "variance": 0.01}
+    for var, values in stats.items():
+        v = np.asarray(values, np.float64).ravel()
+        bins = max(1, int((abs(v.min()) + abs(v.max())) / widths.get(var, 0.1)))
+        fig, ax = plt.subplots()
+        ax.hist(v, bins=bins, color="blue")
+        ax.set_ylabel("Occurrence")
+        ax.set_xlabel(var)
+        p = out_dir / f"hist_{var}_{epoch}.png"
+        _savefig(fig, p, 200)
+        plt.close(fig)
+        paths.append(p)
+        fig, ax = plt.subplots()
+        ax.hist(v, bins=bins, density=True, color="darkblue")
+        if len(v) > 1 and v.std() > 0:
+            xs = np.linspace(v.min(), v.max(), 200)
+            ax.plot(xs, gaussian_kde(v)(xs), lw=3)
+        ax.set_xlabel("Variance")  # the reference labels both plots so
+        p = out_dir / f"kde_{var}_{epoch}.png"
+        _savefig(fig, p, 200)
+        plt.close(fig)
+        paths.append(p)
+    return paths
+
+
+def plot_posterior_polarization(p_yx, class_names, out_path):
+    """The mean posterior of each classifier over the samples, sorted
+    (reference util_gan_evaluation.py:139-155)."""
+    plt = _plt()
+    mean = np.asarray(p_yx).mean(axis=0)
+    order = np.argsort(mean)
+    fig, ax = plt.subplots()
+    ax.plot(np.arange(len(order)), mean[order])
+    ax.set_xticks(np.arange(len(order)))
+    ax.set_xticklabels([str(class_names[i]) for i in order])
+    ax.set_xlabel("Classifier/Class")
+    ax.set_ylabel("Medium activation across samples")
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_vqvae_losses(history: dict, out_dir) -> list:
+    """The VQ-VAE's component figures (reference utils_vq_vae/
+    util_report.py:13-36): train against val-OoD reconstruction loss →
+    `reconstruction_loss.png`, the vq loss → `vq_loss.png`, each only where
+    both its series exist."""
+    plt = _plt()
+    out_dir = Path(out_dir)
+    paths = []
+    for pair, fname, title in (
+        (("train_loss_recons", "val_ood_loss_recons"), "reconstruction_loss.png",
+         "Reconstruction Loss"),
+        (("train_loss_vq", "val_ood_loss_vq"), "vq_loss.png", "vq loss"),
+    ):
+        if not all(history.get(k) for k in pair):
+            continue
+        fig, ax = plt.subplots(figsize=(8, 6))
+        for k, color in zip(pair, ("r", "b")):
+            ax.plot(np.asarray(history[k], np.float64), label=k, color=color)
+        ax.set_title(title)
+        ax.set_xlabel("Epochs")
+        ax.set_ylabel("Losses")
+        ax.legend()
+        _savefig(fig, out_dir / fname, 200)
+        plt.close(fig)
+        paths.append(out_dir / fname)
+    return paths
 
 
 def save_grayscale(out_path, image):

@@ -1,13 +1,15 @@
 """Command-line entry point of the port (counterpart of
 `gan_discovery_pso_tpu/cli/main.py`: `_parse_set`, `_add_common`, `_TINY`,
 `_ctx`, `_epochs` :33-90, `_load_gan`/`_load_cnn` :271-290, and the
-`cae`, `classifiers`, `cnn`, `cnn-multipatient`, `pso-discovery`,
+`cae`, `classifiers`, `dcgan`, `cnn`, `cnn-multipatient`, `pso-discovery`,
 `inverter`, `iid-extract`/`ood-extract`, `pso-inverter`,
-`regularize-inverter` and `regularize-inverter-statistics` branches
-:351-414):
+`regularize-inverter`, `regularize-inverter-statistics`, `vqvae` and
+`pixelcnn-prior` branches :351-425):
 
     python -m gan_discovery_pso_tpu_torch.cli cae [--epochs E] ...
     python -m gan_discovery_pso_tpu_torch.cli classifiers --path-cae DIR ...
+    python -m gan_discovery_pso_tpu_torch.cli dcgan --path-cae DIR \\
+        --path-classifiers DIR [--epochs E] [--resume-id N] ...
     python -m gan_discovery_pso_tpu_torch.cli cnn|cnn-multipatient [--epochs E] ...
     python -m gan_discovery_pso_tpu_torch.cli pso-discovery \\
         --cfg configs/dcgan_mnist.yaml --path-gan DIR --path-cnn DIR \\
@@ -24,17 +26,26 @@
         --path-gan DIR --path-inverter DIR ...
     python -m gan_discovery_pso_tpu_torch.cli regularize-inverter-statistics \\
         --path-gan DIR --path-inverter DIR --path-pso DIR ...
+    python -m gan_discovery_pso_tpu_torch.cli vqvae --cfg configs/vqvae.yaml \\
+        --path-gan DIR --path-pso DIR [--epochs E] ...
+    python -m gan_discovery_pso_tpu_torch.cli pixelcnn-prior --cfg configs/vqvae.yaml \\
+        --path-vqvae DIR [--epochs E] ...
 
-`--path-cae`, `--path-gan`, `--path-cnn` and `--path-inverter` are the
-models dirs of either package's `cae`, `dcgan`, `cnn-multipatient` and
-`inverter` runs: the port reads their flax-msgpack checkpoints. The stages
+`--path-cae`, `--path-classifiers`, `--path-gan`, `--path-cnn`,
+`--path-inverter` and `--path-vqvae` are the models dirs of either
+package's `cae`, `classifiers`, `dcgan`, `cnn-multipatient`, `inverter` and
+`vqvae` runs: the port reads their flax-msgpack checkpoints. `dcgan
+--resume-id N` re-enters run N and trains --epochs MORE epochs from its
+`checkpoint_g`; `--tiny` evaluates it on 256 samples an epoch. The stages
 run on the card; `--device cpu` is the port's counterpart of
 `JAX_PLATFORMS=cpu`. `--fast-math` runs the swarm's forwards in bf16 (the
 pso-inverter's fine-tune stays in fp32 parity); the training stages (cae,
-cnn, cnn-multipatient, inverter), classifiers and the two regularize
-stages refuse it (exit 2, ROADMAP A18). `--path-cnn` is read by
+cnn, cnn-multipatient, dcgan, inverter, vqvae, pixelcnn-prior),
+classifiers and the two regularize stages refuse it (exit 2, ROADMAP A18),
+and so does `dcgan` under `trainer_gan.compute_dtype`. `--path-cnn` is read by
 `inverter` only for `trainer_inverter.training_function=pix_fea_rec_adv`;
-`--path-pso` is the interim dir of a pso-discovery run. The regularize
+`--path-pso` is the interim dir of a pso-discovery run (the vqvae's
+codebook). The regularize
 stages invert the first 8 OoD test images, 500 iterations (50 with
 `--tiny`). `--limit N` caps every dataset load at N images; `--tiny` caps
 at 512 unless --limit says otherwise, and gives 1 training epoch unless
@@ -52,7 +63,6 @@ import torch
 # stages of the JAX package's CLI that the port does not run yet, with the
 # ROADMAP item of each
 NOT_PORTED = {
-    "dcgan": "A9", "vqvae": "A13", "pixelcnn-prior": "A13",
     "pso-analysis": "A15", "pso-analysis-clustering": "A15",
     "pso-analysis-distance": "A15", "pso-inverter-analysis": "A15",
     "claro-preprocess": "A14", "sweep": "A17", "export-model": "A17",
@@ -65,7 +75,8 @@ MODEL_STAGES = ("cae", "classifiers", "cnn", "cnn-multipatient")
 # stages that train, optimise by gradients or build the evaluation battery:
 # the JAX package's --fast-math there is TPU DEFAULT precision, whose card
 # counterpart is not decided yet
-NO_FAST_MATH = (*MODEL_STAGES, "inverter", *INVERSION_STAGES)
+NO_FAST_MATH = (*MODEL_STAGES, "dcgan", "inverter", *INVERSION_STAGES, "vqvae",
+                "pixelcnn-prior")
 
 
 def _parse_set(values):
@@ -115,7 +126,8 @@ def _ctx(args, module):
     overrides = _parse_set(args.set)
     if args.tiny:
         overrides = {**_TINY, **overrides}
-    ctx = StageContext.create(args.cfg, module, overrides=overrides, device=args.device)
+    ctx = StageContext.create(args.cfg, module, overrides=overrides, device=args.device,
+                              run_id=getattr(args, "resume_id", None))
     if args.limit or args.tiny:
         ctx.limit = args.limit or 512
     return ctx
@@ -182,6 +194,25 @@ def _parser() -> argparse.ArgumentParser:
                            help="shard particles over N devices (not ported: ROADMAP A16)")
         if name == "pso-inverter":
             p.add_argument("--ood-patient", type=int, default=None)
+    p = sub.add_parser("dcgan")
+    _add_common(p)
+    p.add_argument("--path-cae", default=None, help="cae stage model dir")
+    p.add_argument("--path-classifiers", default=None, help="classifiers stage model dir")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="training epochs (default: trainer_gan.epochs)")
+    p.add_argument("--resume-id", type=int, default=None, metavar="N",
+                   help="re-enter run dir N and resume from its checkpoint; --epochs "
+                        "counts ADDITIONAL epochs")
+    p = sub.add_parser("vqvae")
+    _add_common(p)
+    p.add_argument("--path-gan", default=None, help="dcgan stage model dir")
+    p.add_argument("--path-pso", default=None, help="pso-discovery stage interim dir")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="training epochs (default: trainer.epochs)")
+    p = sub.add_parser("pixelcnn-prior")
+    _add_common(p)
+    p.add_argument("--path-vqvae", default=None, help="vqvae stage model dir")
+    p.add_argument("--epochs", type=int, default=None, help="training epochs (default: 10)")
     return parser
 
 
@@ -197,6 +228,15 @@ def main(argv=None):
         print(f"--fast-math: not yet ported for the {args.stage} stage (ROADMAP A18); it "
               "runs in fp32 parity", file=sys.stderr)
         return 2
+    if args.stage == "dcgan":  # refused before a run dir is made
+        from gan_discovery_pso_tpu_torch.core import load_config
+        from gan_discovery_pso_tpu_torch.pipelines import NotPortedError, refuse_gan_compute_dtype
+
+        try:
+            refuse_gan_compute_dtype(load_config(args.cfg, overrides=_parse_set(args.set)))
+        except NotPortedError as e:
+            print(e, file=sys.stderr)
+            return 2
     if getattr(args, "shard_swarm", None):
         print("--shard-swarm: not yet ported to the PyTorch package (ROADMAP A16)",
               file=sys.stderr)
@@ -216,6 +256,26 @@ def main(argv=None):
         elif stage == "classifiers":
             P.run_classifiers(ctx, cae_model_dir=_require(args.path_cae, "--path-cae",
                                                           "models dir of a cae run"))
+        elif stage == "dcgan":
+            from pathlib import Path
+
+            from gan_discovery_pso_tpu_torch.evaluation import load_battery
+
+            cae = P.load_cae(_require(args.path_cae, "--path-cae", "models dir of a cae run"),
+                             device=ctx.device)
+            battery = load_battery(Path(_require(
+                args.path_classifiers, "--path-classifiers",
+                "models dir of a classifiers run")) / "classifiers.msgpack", device=ctx.device)
+            P.run_dcgan(ctx, cae, battery, epochs=_epochs(args),
+                        n_synthetic=256 if args.tiny else None,
+                        resume=args.resume_id is not None)
+        elif stage == "vqvae":
+            P.run_vqvae(ctx, _load_gan(args, ctx), pso_interim_dir=args.path_pso,
+                        epochs=_epochs(args))
+        elif stage == "pixelcnn-prior":
+            P.run_pixelcnn_prior_from_vqvae(
+                ctx, _require(args.path_vqvae, "--path-vqvae", "models dir of a vqvae run"),
+                epochs=_epochs(args))
         elif stage == "cnn":
             P.run_cnn(ctx, epochs=_epochs(args))
         elif stage == "cnn-multipatient":

@@ -12,7 +12,8 @@ reference's state-dict names, which the port's modules carry:
     generator_state_dict(params, state) / resnet_state_dict(params, state) /
     encoder_state_dict(params) / discriminator_state_dict(params) /
     encoder_attgan_state_dict(params, state) / alexnet_state_dict(params) /
-    cae_encoder_state_dict(params, state) / cae_decoder_state_dict(params, state)
+    cae_encoder_state_dict(params, state) / cae_decoder_state_dict(params, state) /
+    vqvae_state_dict(params, state, variant) / pixelcnn_state_dict(params)
         → {name: np.ndarray}
     to_tensors(...) → {name: torch.Tensor}, ready for
         module.load_state_dict(..., strict=True)
@@ -26,10 +27,17 @@ and back (counterpart of `compat/torch_import.py:54,121`):
     encoder_tree(state_dict) / discriminator_tree(state_dict) /
     alexnet_tree(state_dict) → params (none of them has state);
     encoder_attgan_tree(state_dict) / cae_encoder_tree(state_dict) /
-    cae_decoder_tree(state_dict) → (params, state)
+    cae_decoder_tree(state_dict) / vqvae_tree(state_dict, variant)
+        → (params, state); pixelcnn_tree(state_dict) → params;
+    gan_train_state_tree(G, D, opt_g, opt_d, step) → the JAX package's
+        `GanTrainState` (params, BN state, optax Adam/RMSprop states, step),
+        and `load_gan_train_state` back; `optimizer_tree` /
+        `load_optimizer_tree` map torch's Adam and RMSprop states (exp_avg,
+        exp_avg_sq, square_avg, step) to optax's (mu, nu, count)
 
-AlexNet has no reference name map in the JAX package: its state-dict names
-are the JAX tree's (`conv1`…`conv4`, `fc1`…`fc3`). The CAE's are the
+AlexNet, the VQ-VAEs and the PixelCNN have no reference name map in the
+JAX package: their state-dict names are the JAX trees' paths (`conv1`…
+`fc3`; `encoder.conv1`, `codebook`, `enc_res1.bn2`; `layers.0.vert`). The CAE's are the
 reference's (JAX `compat/torch_export.py:89-110`).
 
 `load_reference_checkpoint` reads the reference's `.tar`
@@ -42,6 +50,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _np(x) -> np.ndarray:
@@ -67,18 +76,21 @@ def _put_conv(sd: dict, prefix: str, p: dict):
 def _put_bn(sd: dict, prefix: str, p: dict, st):
     sd[f"{prefix}.weight"] = _np(p["scale"])
     sd[f"{prefix}.bias"] = _np(p["bias"])
+    if st is None:  # the parameters alone (an optimizer's moments)
+        return
     sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"] = _bn_stats(st)
     # strict load_state_dict wants the counter torch BN modules carry
     sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
 
 
-def generator_state_dict(params: dict, state: dict) -> dict:
-    """DCGAN generator tree → `Generator` state dict (`gen.*` names)."""
+def generator_state_dict(params: dict, state: dict | None) -> dict:
+    """DCGAN generator tree → `Generator` state dict (`gen.*` names); with
+    state None, the parameter entries alone."""
     sd: dict = {}
     _put_conv(sd, "gen.0.0", params["convt1"])
-    _put_bn(sd, "gen.0.1", params["bn1"], state["bn1"])
+    _put_bn(sd, "gen.0.1", params["bn1"], None if state is None else state["bn1"])
     _put_conv(sd, "gen.1.0", params["convt2"])
-    _put_bn(sd, "gen.1.1", params["bn2"], state["bn2"])
+    _put_bn(sd, "gen.1.1", params["bn2"], None if state is None else state["bn2"])
     _put_conv(sd, "gen.2", params["convt3"])
     return sd
 
@@ -203,14 +215,24 @@ def _sorted(node):
     return node
 
 
+def _bn_params(sd: dict, prefix: str) -> dict:
+    return {"bias": _host(sd[f"{prefix}.bias"]), "scale": _host(sd[f"{prefix}.weight"])}
+
+
+def generator_params_tree(sd: dict) -> dict:
+    """The parameter entries of a `Generator` state dict (or any {name:
+    tensor} over its parameter names, such as Adam's moments) → the JAX
+    package's generator params."""
+    return _sorted({"convt1": _conv_tree(sd, "gen.0.0"), "bn1": _bn_params(sd, "gen.0.1"),
+                    "convt2": _conv_tree(sd, "gen.1.0"), "bn2": _bn_params(sd, "gen.1.1"),
+                    "convt3": _conv_tree(sd, "gen.2")})
+
+
 def generator_tree(sd: dict) -> tuple[dict, dict]:
     """`Generator` state dict → the JAX package's generator (params, state)."""
-    bn1, s1 = _bn_tree(sd, "gen.0.1")
-    bn2, s2 = _bn_tree(sd, "gen.1.1")
-    params = {"convt1": _conv_tree(sd, "gen.0.0"), "bn1": bn1,
-              "convt2": _conv_tree(sd, "gen.1.0"), "bn2": bn2,
-              "convt3": _conv_tree(sd, "gen.2")}
-    return _sorted(params), _sorted({"bn1": s1, "bn2": s2})
+    _, s1 = _bn_tree(sd, "gen.0.1")
+    _, s2 = _bn_tree(sd, "gen.1.1")
+    return generator_params_tree(sd), _sorted({"bn1": s1, "bn2": s2})
 
 
 def encoder_tree(sd: dict) -> dict:
@@ -284,6 +306,196 @@ def resnet_tree(sd: dict) -> tuple[dict, dict]:
         li += 1
     params["fc"] = {"b": _host(sd["fc.bias"]), "w": _host(sd["fc.weight"])}
     return _sorted(params), _sorted(state)
+
+
+# -- the VQ-VAE family and the PixelCNN prior ------------------------------------
+# (conv paths, BN paths, plain leaves) of each variant: a module path is its
+# JAX tree path, dotted
+
+
+_VQ_RES = tuple(f"{side}_res{i}" for side in ("enc", "dec") for i in (1, 2))
+_VQVAE_LAYOUTS = {
+    "vqvae_dcgan": (("encoder.conv1", "encoder.conv2", "encoder.conv3"), ("encoder.bn2",),
+                    ("codebook",)),
+    "vqvae": (("enc_conv1", "enc_conv2", *(f"{r}.conv{j}" for r in _VQ_RES for j in (1, 2)),
+               "dec_convt1", "dec_convt2"),
+              ("enc_bn1", *(f"{r}.bn{j}" for r in _VQ_RES for j in (1, 2)), "dec_bn1"),
+              ("codebook",)),
+    "vqvae_mnist": (("enc_conv1", "enc_conv2", "enc_conv3", "dec_convt1", "dec_convt2",
+                     "dec_convt3"), (), ("codebook",)),
+}
+
+
+def _at(tree: dict, path: str):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path: str, value) -> None:
+    *head, last = path.split(".")
+    for key in head:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+def vqvae_state_dict(params: dict, state: dict, variant: str = "vqvae_dcgan") -> dict:
+    """A VQ-VAE tree of the JAX package's `variant` → the port's module state
+    dict (`VQVAEGan`, `VQVAE` or `VQVAEMnist`); vqvae_dcgan's decoder under
+    `decoder.` with the Generator's names."""
+    convs, bns, leaves = _VQVAE_LAYOUTS[variant]
+    sd: dict = {}
+    for path in convs:
+        _put_conv(sd, path, _at(params, path))
+    for path in bns:
+        _put_bn(sd, path, _at(params, path), _at(state, path))
+    for path in leaves:
+        sd[path] = _np(_at(params, path))
+    if variant == "vqvae_dcgan":
+        sd.update({f"decoder.{k}": v for k, v in
+                   generator_state_dict(params["decoder"], state["decoder"]).items()})
+    return sd
+
+
+def vqvae_tree(sd: dict, variant: str = "vqvae_dcgan") -> tuple[dict, dict]:
+    """The port's VQ-VAE state dict → the JAX package's (params, state) of
+    `variant`."""
+    convs, bns, leaves = _VQVAE_LAYOUTS[variant]
+    params, state = {}, {}
+    for path in convs:
+        _put(params, path, _conv_tree(sd, path))
+    for path in bns:
+        p, st = _bn_tree(sd, path)
+        _put(params, path, p)
+        _put(state, path, st)
+    for path in leaves:
+        _put(params, path, _host(sd[path]))
+    if variant == "vqvae_dcgan":
+        params["decoder"], state["decoder"] = generator_tree(
+            {k[len("decoder."):]: v for k, v in sd.items() if k.startswith("decoder.")})
+    return _sorted(params), _sorted(state)
+
+
+_PIXEL_CONVS = ("vert", "v2h", "horiz", "h_res")
+
+
+def pixelcnn_state_dict(params: dict) -> dict:
+    """The JAX package's PixelCNN params → `PixelCNN` state dict."""
+    sd = {"embedding": _np(params["embedding"])}
+    for i, lp in enumerate(params["layers"]):
+        sd[f"layers.{i}.class_embed"] = _np(lp["class_embed"])
+        for name in _PIXEL_CONVS:
+            _put_conv(sd, f"layers.{i}.{name}", lp[name])
+    _put_conv(sd, "out1", params["out1"])
+    _put_conv(sd, "out2", params["out2"])
+    return sd
+
+
+def pixelcnn_tree(sd: dict) -> dict:
+    """`PixelCNN` state dict → the JAX package's PixelCNN params."""
+    layers = []
+    while f"layers.{len(layers)}.class_embed" in sd:
+        i = len(layers)
+        layers.append({"class_embed": _host(sd[f"layers.{i}.class_embed"]),
+                       **{name: _conv_tree(sd, f"layers.{i}.{name}") for name in _PIXEL_CONVS}})
+    return _sorted({"embedding": _host(sd["embedding"]), "layers": layers,
+                    "out1": _conv_tree(sd, "out1"), "out2": _conv_tree(sd, "out2")})
+
+
+# -- optimizer state and the GAN train state ------------------------------------
+
+
+def _copy(t) -> np.ndarray:
+    # a copy: on the CPU a tensor's numpy view aliases what the optimizer
+    # updates in place
+    return np.array(_host(t), copy=True)
+
+
+def optimizer_tree(opt: torch.optim.Optimizer, named_params, to_tree, step: int) -> list:
+    """An Adam or RMSprop optimizer's state over `named_params` ((name,
+    parameter) pairs, the order of its one param group) as the optax state
+    the JAX package's `make_optimizer` builds, `_plainify`d:
+
+        Adam:    [{count, mu, nu}, {}]     (scale_by_adam, scale_by_learning_rate)
+        RMSprop: [{nu}, {}]                (scale_by_rms, scale)
+
+    each inside `[{}, ...]` (add_decayed_weights first) where the group has
+    a weight decay. `to_tree` maps {parameter name: array} to the JAX params
+    tree; `count` is torch's step (`step` where the optimizer has not
+    stepped yet)."""
+    group = opt.param_groups[0]
+    moments = ("exp_avg", "exp_avg_sq") if isinstance(opt, torch.optim.Adam) else ("square_avg",)
+    trees = []
+    for key in moments:
+        trees.append(to_tree({name: _copy(opt.state[p][key]) if opt.state.get(p)
+                              else np.zeros(tuple(p.shape), np.float32)
+                              for name, p in named_params}))
+    first = opt.state.get(named_params[0][1])
+    count = int(first["step"]) if first else step
+    if len(trees) == 2:
+        inner = {"count": np.asarray(count, np.int32), "mu": trees[0], "nu": trees[1]}
+    else:
+        inner = {"nu": trees[0]}
+    chain = [inner, {}]
+    return [{}, chain] if group["weight_decay"] else chain
+
+
+def load_optimizer_tree(opt: torch.optim.Optimizer, named_params, tree: list, to_sd,
+                        step: int) -> None:
+    """The inverse of `optimizer_tree`: the optax state `tree` into `opt`
+    (`to_sd` maps the JAX params tree to {parameter name: array}). A count
+    of 0 leaves the optimizer fresh, as torch starts one."""
+    chain = tree[1] if opt.param_groups[0]["weight_decay"] else tree
+    inner = chain[0]
+    adam = isinstance(opt, torch.optim.Adam)
+    count = int(inner["count"]) if adam else step
+    if count == 0:
+        return
+    keys = (("exp_avg", "mu"), ("exp_avg_sq", "nu")) if adam else (("square_avg", "nu"),)
+    moments = {key: to_sd(inner[src]) for key, src in keys}
+    sd = opt.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(float(count), dtype=torch.float32),
+                       **{key: torch.from_numpy(np.array(m[name], np.float32))
+                          for key, m in moments.items()}}
+                   for i, (name, _p) in enumerate(named_params)}
+    opt.load_state_dict(sd)
+
+
+def _gen_moments_sd(params: dict) -> dict:
+    return generator_state_dict(params, None)
+
+
+def gan_train_state_tree(gen: nn.Module, disc: nn.Module, opt_g, opt_d, step: int) -> dict:
+    """The DCGAN's train state as the JAX package's `GanTrainState`
+    (`train/dcgan.py:45`) in a checkpoint: {disc_params, gen_params,
+    gen_state, opt_d, opt_g, step}, every array a host copy."""
+    gen_params, gen_state = generator_tree({k: _copy(v) for k, v in gen.state_dict().items()})
+    return {"disc_params": discriminator_tree({k: _copy(v) for k, v in
+                                               disc.state_dict().items()}),
+            "gen_params": gen_params, "gen_state": gen_state,
+            "opt_d": optimizer_tree(opt_d, list(disc.named_parameters()), discriminator_tree,
+                                    step),
+            "opt_g": optimizer_tree(opt_g, list(gen.named_parameters()), generator_params_tree,
+                                    step),
+            "step": np.asarray(step, np.int32)}
+
+
+def load_gan_train_state(tree: dict, gen: nn.Module, disc: nn.Module, opt_g, opt_d) -> int:
+    """A `GanTrainState` tree (either package's `checkpoint_g`/`best_g`
+    `state`) into the modules and optimizers, in place; returns its step.
+    The BN counters `num_batches_tracked` restart at 0 (the JAX state has
+    none; with a momentum, torch never reads them)."""
+    step = int(tree["step"])
+    device = next(gen.parameters()).device
+    gen.load_state_dict(to_tensors(generator_state_dict(tree["gen_params"], tree["gen_state"]),
+                                   device=device), strict=True)
+    disc.load_state_dict(to_tensors(discriminator_state_dict(tree["disc_params"]),
+                                    device=device), strict=True)
+    load_optimizer_tree(opt_g, list(gen.named_parameters()), tree["opt_g"], _gen_moments_sd,
+                        step)
+    load_optimizer_tree(opt_d, list(disc.named_parameters()), tree["opt_d"],
+                        discriminator_state_dict, step)
+    return step
 
 
 def to_tensors(sd: dict, device=None) -> dict:

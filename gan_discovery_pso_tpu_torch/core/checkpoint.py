@@ -377,7 +377,8 @@ def restore_tree(node):
 class Checkpointer:
     """Per-run checkpoint files with the reference's stems:
     `checkpoint_<tag>.msgpack` overwritten per epoch
-    (reference src/utils/util_dcgan.py:225-238), and bare state saves."""
+    (reference src/utils/util_dcgan.py:225-238), `best_<tag>.msgpack`
+    (:303-314), and bare state saves."""
 
     def __init__(self, model_dir: str | Path):
         self.model_dir = Path(model_dir)
@@ -387,6 +388,11 @@ class Checkpointer:
         payload = {"epoch": int(epoch), "state": state,
                    "loss": None if loss is None else float(loss)}
         return save_pytree(self.model_dir / f"checkpoint_{tag}.msgpack", payload)
+
+    def save_best(self, tag: str, epoch: int, state: Any, loss=None) -> Path:
+        payload = {"epoch": int(epoch), "state": state,
+                   "loss": None if loss is None else float(loss)}
+        return save_pytree(self.model_dir / f"best_{tag}.msgpack", payload)
 
     def save_state_dict(self, name: str, state: Any) -> Path:
         """Bare state save, as `torch.save(model.state_dict(), 'x.pt')`

@@ -1,6 +1,6 @@
 """Logging: stdout tee into the run dir, metric histories, notifier hook
 (counterpart of `gan_discovery_pso_tpu/core/logging.py:38-188`, the parts
-the discovery stage uses).
+the stages use; `MetricsWriter.drop_rows_from` :102 for a resumed run).
 
 Replaces the reference's `Logger` stdout/stderr tee
 (reference src/utils/util_general.py:140-193) and its hard-coded webhook
@@ -91,6 +91,26 @@ class MetricsWriter:
                 self._tb = SummaryWriter(str(root / name))
             except ImportError:
                 pass
+
+    def drop_rows_from(self, step: int) -> None:
+        """Rewrite the jsonl keeping only the rows with step < `step` (a
+        resumed run re-runs the epochs from there), and seed the rows the
+        close-time csv is built from with them, so that the csv covers the
+        whole run, not only the resumed invocation."""
+        path = self.out_dir / f"{self.name}.jsonl"
+        self._jsonl.close()
+        kept = []
+        if path.exists():
+            for line in open(path):
+                try:
+                    if int(json.loads(line).get("step", -1)) < step:
+                        kept.append(line)
+                except (ValueError, json.JSONDecodeError):
+                    continue
+        with open(path, "w") as f:
+            f.writelines(kept)
+        self._jsonl = open(path, "a", buffering=1)
+        self._rows = [json.loads(line) for line in kept] + self._rows
 
     def append(self, step: int, **metrics) -> None:
         row = {"step": int(step)}

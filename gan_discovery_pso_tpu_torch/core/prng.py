@@ -17,7 +17,18 @@ The stages' streams: `pso` (a child per class in discovery), `rehead`,
 denoising noise) and `cae_img_loss`, the assessors' `cnn_{label}`/`init`
 (a child per class) and `cnn_multi`, and the inverter's `enc`, `disc`,
 `inv_fixed_noise`, `inv_step` (each adversarial train step's labels),
-`inv_eval` (each eval batch's) and `invert_bn` (the initial weights).
+`inv_eval` (each eval batch's) and `invert_bn` (the initial weights); the
+DCGAN's `gan` (G and D init), `fixed_noise` (the 32 z of the per-epoch
+superimage), `gan_step` (each train step's noise and labels) and
+`gan_eval` (each epoch's evaluation z and denoising noise); the VQ-VAE's
+`vqvae` (its init) and `vqvae_fixed_noise`; the PixelCNN prior's
+`pixelcnn` (its init) and `pix_ep_{e}` (epoch e's batch order, peeked).
+
+`gan_step` and `gan_eval` are addressed by the ABSOLUTE (epoch, step) and
+epoch, not by a consumed counter (`KeyChain.fold`, the JAX package's
+`jax.random.fold_in(keys.peek(...), epoch)`): a run killed after epoch e
+and resumed from its checkpoint draws, from epoch e + 1 on, exactly what
+the single-shot run drew, so the two end bit-equal.
 """
 
 from __future__ import annotations
@@ -65,6 +76,16 @@ class KeyChain:
         """The stream's next generator, without consuming it (the JAX
         package's per-epoch data order, `pipelines/context.py:115`)."""
         return self._generator(stream, self._counters.get(stream, 0), device)
+
+    def fold(self, stream: str, *indices: int, device=None) -> torch.Generator:
+        """The stream's next generator (not consumed, as `peek`) with each
+        of `indices` mixed into its seed in turn: draw (epoch, step) of a
+        stream whatever ran before it in this process."""
+        seed = self.seed(stream, self._counters.get(stream, 0))
+        for i in indices:
+            seed = _mix(seed, int(i)) >> 1
+        g = torch.Generator(device=device if device is not None else "cpu")
+        return g.manual_seed(seed)
 
     def child(self, name: str) -> "KeyChain":
         """Independent subtree (one per IiD class / OoD patient)."""

@@ -1,4 +1,4 @@
-"""DCGAN generator (eval-mode forward) and discriminator (counterpart of
+"""DCGAN generator and discriminator (counterpart of
 `gan_discovery_pso_tpu/models/dcgan.py:48-126`).
 
 Reference src/utils/util_dcgan.py:128-149:
@@ -10,9 +10,12 @@ Reference src/utils/util_dcgan.py:128-149:
 
 Submodules carry the reference's state-dict names (`gen.0.0`, `gen.0.1`,
 `gen.1.0`, `gen.1.1`, `gen.2`), so a reference checkpoint and
-`compat/weights.py` output load with `strict=True`. The forward always uses
-the BN running statistics (the PSO fitness path); the generator's training
-waits for the DCGAN slice.
+`compat/weights.py` output load with `strict=True`. The module's mode picks
+the BN statistics, as `generator_apply(train=)` does: in eval mode (the PSO
+fitness path, the sampler, every loader's return) the running statistics;
+in train mode (the DCGAN train step) the batch's, and the running
+statistics move once per forward, in place (`ops/norm.py
+batch_norm_train`).
 
 Discriminator (reference src/utils/util_dcgan.py:103-125; the inverter's
 adversary, util_inverter.py:95-140):
@@ -35,7 +38,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gan_discovery_pso_tpu_torch.ops import batch_norm_eval, conv2d, conv_transpose2d
+from gan_discovery_pso_tpu_torch.ops import (
+    batch_norm_eval,
+    batch_norm_train,
+    conv2d,
+    conv_transpose2d,
+)
 
 
 class GeneratorDef(NamedTuple):
@@ -67,13 +75,18 @@ class Generator(nn.Module):
         )
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """z [N, z_dim, 1, 1] → images [N, C, 28, 28] in [-1, 1]."""
+        """z [N, z_dim, 1, 1] → images [N, C, 28, 28] in [-1, 1]; BN by the
+        batch in train mode, by the running statistics in eval mode."""
         h = z
         for block in self.gen[:2]:
             conv, bn = block[0], block[1]
             h = conv_transpose2d(h, conv.weight, conv.bias, conv.stride, conv.padding)
-            h = batch_norm_eval(h, bn.weight, bn.bias, bn.running_mean,
-                                bn.running_var, bn.eps)
+            if self.training:
+                h = batch_norm_train(h, bn.weight, bn.bias, bn.running_mean,
+                                     bn.running_var, bn.momentum, bn.eps)
+            else:
+                h = batch_norm_eval(h, bn.weight, bn.bias, bn.running_mean,
+                                    bn.running_var, bn.eps)
             h = torch.relu(h)
         head = self.gen[2]
         return torch.tanh(conv_transpose2d(h, head.weight, head.bias,

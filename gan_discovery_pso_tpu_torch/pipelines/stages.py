@@ -1,19 +1,25 @@
-"""Model loaders, the CAE, classifier and assessor stages, the inverter's
-training and the inversion stages (counterpart of
-`gan_discovery_pso_tpu/pipelines/stages.py`: `run_cae` :72, `load_cae`
-:150, `run_classifiers` :167, `load_gan` :463, `assessor_factory` :481,
-`run_cnn` :507, `run_cnn_multipatient` :580, `load_cnn` :610,
-`_inverter_epoch_viz` :646, `run_inverter` :670, `load_encoder` :927,
-`run_extractor` :954, `run_pso_inverter` :1002,
+"""Model loaders, the CAE, classifier, DCGAN and assessor stages, the
+inverter's training, the inversion stages and the VQ-VAE family
+(counterpart of `gan_discovery_pso_tpu/pipelines/stages.py`: `run_cae` :72,
+`load_cae` :150, `run_classifiers` :167, `run_dcgan` :240, `load_gan`
+:463, `assessor_factory` :481, `run_cnn` :507, `run_cnn_multipatient`
+:580, `load_cnn` :610, `_inverter_epoch_viz` :646, `run_inverter` :670,
+`load_encoder` :927, `run_extractor` :954, `run_pso_inverter` :1002,
 `_regularize_snapshots_and_pickle` :1144, `run_regularize_inverter` :1180,
-`run_regularize_inverter_statistics` :1220).
+`run_regularize_inverter_statistics` :1220, `run_vqvae` :1255,
+`run_pixelcnn_prior_from_vqvae` :1375, `run_pixelcnn_prior` :1433).
 
 The loaders read the flax-msgpack checkpoints that either package's `cae`,
 `dcgan`, `cnn`/`cnn-multipatient` and `inverter` stages write
 (`core/checkpoint.py`) and return the port's `nn.Module`s, in eval mode,
 on the requested device (the card unless the caller names another), built
-through `compat/weights.py`. The generator's training is a later slice
-(ROADMAP A9).
+through `compat/weights.py`.
+
+The DCGAN stage (reference src/training/dcgan.py) trains G and D against
+each other, evaluates each epoch with the frozen CAE and KNN battery
+(`evaluate_gan_epoch`, whose sampler launches the B2 kernel), and writes
+`checkpoint_g` / `best_g` in the JAX layout, so that either package
+resumes the other's run and reads its G.
 
 The CAE stage (reference src/training/cae.py) trains the denoising
 autoencoder that every GAN metric embeds with, and writes `encoder.msgpack`
@@ -50,6 +56,11 @@ The pso-inverter (reference src/training/pso_inverter.py) has two phases:
    those positions with the hybrid fitness (`pso/runner.py`
    `make_inverter_runner`), then write the discovery stage's artifact set
    nested under the patient id.
+
+The VQ-VAE stage (reference src/training/vq_vae.py) trains a vqvae_dcgan
+whose codebook is a pso-discovery run's final particles and whose decoder
+is the trained G, frozen; the PixelCNN prior stage encodes the train split
+to code indices with that model and trains the Gated PixelCNN on them.
 """
 
 from __future__ import annotations
@@ -75,17 +86,22 @@ from gan_discovery_pso_tpu_torch.compat.weights import (
     encoder_state_dict,
     encoder_tree,
     generator_state_dict,
+    pixelcnn_tree,
     resnet_state_dict,
     resnet_tree,
     to_tensors,
+    vqvae_state_dict,
+    vqvae_tree,
 )
-from gan_discovery_pso_tpu_torch.core.checkpoint import load_pytree, restore_tree
+from gan_discovery_pso_tpu_torch.core.checkpoint import load_pytree, restore_tree, save_pytree
 from gan_discovery_pso_tpu_torch.core.config import AdamConfig, PsoConfig, cfg_default
 from gan_discovery_pso_tpu_torch.core.device import resolve_device
 from gan_discovery_pso_tpu_torch.data import train_val_split
 from gan_discovery_pso_tpu_torch.evaluation import (
     KnnBattery,
     compute_posterior,
+    encode,
+    evaluate_gan_epoch,
     save_battery,
     train_classifier_battery,
 )
@@ -111,6 +127,8 @@ from gan_discovery_pso_tpu_torch.models import (
     dcgan_init_,
     torch_default_init_,
 )
+from gan_discovery_pso_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNDef, pixelcnn_loss
+from gan_discovery_pso_tpu_torch.models.vqvae import VQVAEGan, VQVAEGanDef
 from gan_discovery_pso_tpu_torch.ops import postprocess_uint8
 from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
 from gan_discovery_pso_tpu_torch.pipelines.context import StageContext
@@ -135,12 +153,20 @@ from gan_discovery_pso_tpu_torch.train.cae import (
     train_cae,
 )
 from gan_discovery_pso_tpu_torch.train.cnn import train_cnn
+from gan_discovery_pso_tpu_torch.train.dcgan import (
+    GanTrainState,
+    gan_init,
+    make_gan_train_step,
+    make_sampler,
+)
+from gan_discovery_pso_tpu_torch.train.common import optimizer_step
 from gan_discovery_pso_tpu_torch.train.inverter import (
     invert,
     invert_bn,
     make_pix_fea_rec_adv_step,
     make_pix_rec_step,
 )
+from gan_discovery_pso_tpu_torch.train.vqvae import VqvaeTrainState, train_vqvae, vqvae_init
 
 
 def load_gan(model_dir: str | Path, best: bool = True, device=None) -> Generator:
@@ -431,6 +457,191 @@ def run_classifiers(ctx: StageContext, encoder: CAEEncoder | None = None,
           f"rows), posteriors and artifacts {time.perf_counter() - t0:.6f}s; battery tree "
           f"{activation}")
     return battery
+
+
+# -- DCGAN stage (reference src/training/dcgan.py + util_dcgan.train) ----------
+
+_GAN_HISTORY = ("loss_gen", "loss_disc", "fid", "is", "rec_loss_syn")
+
+
+def _resume_gan(ctx: StageContext, state: GanTrainState, history: dict) -> int:
+    """The resume branch (JAX :282-316): `checkpoint_g` into `state`, the
+    full history reloaded and cut to the checkpoint's epoch (the history
+    artifact is written before the checkpoint each epoch, so a kill between
+    the two leaves it one epoch ahead). Returns the first epoch to run."""
+    prev = ctx.ckpt.try_load("checkpoint_g.msgpack")
+    if prev is None:
+        return 0
+    state.load_tree(restore_tree(prev["state"]))
+    offset = int(prev["epoch"]) + 1
+    hist_file = ctx.run.general_dir / "history_gan.msgpack"
+    if not hist_file.exists():  # runs that kept it at the reports root
+        hist_file = ctx.run.reports_dir / "history_gan.msgpack"
+    if hist_file.exists():
+        saved = load_pytree(hist_file)
+        history.update({k: [float(v) for v in saved.get(k, [])] for k in history})
+        n_ep = len(history["fid"])
+        if n_ep > offset:
+            steps = len(history["loss_gen"]) // n_ep if n_ep else 0
+            for k in ("fid", "is", "rec_loss_syn"):
+                history[k] = history[k][:offset]
+            for k in ("loss_gen", "loss_disc"):
+                history[k] = history[k][: offset * steps]
+    return offset
+
+
+class NotPortedError(ValueError):
+    """A setting whose code path the port does not have yet; the message
+    names its ROADMAP entry."""
+
+
+def refuse_gan_compute_dtype(cfg) -> None:
+    """Raise NotPortedError when `trainer_gan.compute_dtype` is set: the
+    mixed-precision GAN step is not ported (ROADMAP A18)."""
+    dtype = (cfg.get("trainer_gan") or {}).get("compute_dtype")
+    if dtype is not None:
+        raise NotPortedError(f"trainer_gan.compute_dtype={dtype}: the mixed-precision GAN "
+                             "step is not yet ported (ROADMAP A18); the dcgan stage trains in "
+                             "fp32 parity")
+
+
+def run_dcgan(ctx: StageContext, cae: tuple, battery: KnnBattery, epochs: int | None = None,
+              n_synthetic: int | None = None, resume: bool = False
+              ) -> tuple[GanTrainState, dict]:
+    """Train the DCGAN (`model_gan`, `trainer_gan`) for `epochs` (default
+    `trainer_gan.epochs`; with `resume`, epochs after the run's
+    `checkpoint_g`) on the IiD train split in drange (−1, 1), evaluating
+    each epoch on `n_synthetic` samples (default batch × 100) with the
+    frozen CAE `cae` = (encoder, decoder) and the KNN `battery` against the
+    test split in drange (0, 1), which the CAE encodes once. Every forward
+    and backward runs in fp32 parity.
+
+    Streams: `gan` (G and D init), `fixed_noise`, and `gan_step`/`gan_eval`
+    addressed by the absolute (epoch, step) and epoch (`KeyChain.fold`), so
+    that a resumed run replays the single-shot run's draws; the batch order
+    `epoch_{e}`. Each step's losses stay on the device until the epoch ends.
+
+    Each epoch writes `general/history_gan.msgpack`, THEN `checkpoint_g`
+    (the train state in the JAX layout), the plots, the raw fixed-noise
+    superimage and `best_g` when the IS improves; a run in which no epoch
+    improved saves the state it started from as `best_g`. Returns (the
+    state holding best_g's weights, G in eval mode; the history)."""
+    cfg, tag = ctx.cfg, "dcgan"
+    refuse_gan_compute_dtype(cfg)
+    gdef = GeneratorDef(int(cfg.trainer_gan.z_dim), ctx.data_cfg.channel,
+                        int(cfg.model_gan.network.units_gen))
+    ddef = DiscriminatorDef(ctx.data_cfg.channel, int(cfg.model_gan.network.units_disc))
+    adam = AdamConfig.from_config(cfg.trainer_gan.optimizer)
+    bs = int(cfg.trainer_gan.batch_size)
+    epochs = epochs if epochs is not None else int(cfg.trainer_gan.epochs)
+    if n_synthetic is None:
+        n_synthetic = bs * 100  # reference util_dcgan.py:243
+    label_smoothing = bool(cfg.trainer_gan.get("label_smoothing", True))
+    # the CAE's training noise; a config without model_ae takes 0.3
+    noise_factor = float(cfg_default(cfg.get("model_ae"), "noise_factor", 0.3))
+    can = _can_write(tag, (
+        ("matplotlib", "plots (training_plot/*.png, class_polarization_*.png, hist_*.png, "
+                       "kde_*.png)"),
+        ("PIL", "the fixed-noise superimages (synthetic_images_*.png)")))
+    encoder, decoder = cae
+
+    t0 = time.perf_counter()
+    ds = ctx.dataset("train", drange=(-1, 1))
+    val = ctx.dataset("test", drange=(0, 1))
+    # the CAE is frozen over the run: the real embeddings are encoded once
+    enc_real = encode(encoder, val.images)
+    print(f"[{tag}] data {time.perf_counter() - t0:.6f}s ({ds.images.shape[0]} train, "
+          f"{val.images.shape[0]} val images)")
+    state = gan_init(ctx.keys("gan"), gdef, ddef, adam, device=ctx.device)
+    history = {k: [] for k in _GAN_HISTORY}
+    offset = _resume_gan(ctx, state, history) if resume else 0
+    if len(ds.images) < bs:
+        raise ValueError(f"train dataset has {len(ds.images)} images < batch_size {bs} — the "
+                         "drop-last epoch loop would run zero batches; lower "
+                         "trainer_gan.batch_size or raise the data cap")
+    step = make_gan_train_step(state, label_smoothing)
+    sampler = make_sampler(state.gen)
+    mw = ctx.metrics("history_gan")
+    if resume:
+        # the re-run epochs' stale rows go (all of them when no checkpoint)
+        mw.drop_rows_from(offset)
+    # the best IS survives a resume, from the history and the disk best_g
+    best_is = max(history["is"][:offset], default=0.0) if offset else 0.0
+    best_epoch, best_tree = offset, state.tree()
+    if resume and offset:
+        prev_best = ctx.ckpt.try_load("best_g.msgpack")
+        if prev_best is not None:
+            best_tree = restore_tree(prev_best["state"])
+            best_epoch = int(prev_best.get("epoch", offset))
+    # the 32 z of the per-epoch superimage, drawn on the CPU
+    fixed_z = torch.randn((32, gdef.z_dim, 1, 1), generator=ctx.keys("fixed_noise"))
+    fixed_z = fixed_z.to(ctx.device)
+    classes = list(battery.classes.cpu().numpy())
+
+    with fp32_parity():
+        for epoch in range(epochs):
+            ep = epoch + offset
+            t_ep = time.perf_counter()
+            metrics = []
+            for i, (x, _y) in enumerate(ctx.batches(ds, bs)(ep)):
+                metrics.append(step(x, ctx.keys.fold("gan_step", ep, i, device=ctx.device)))
+            # one transfer an epoch: the host never waits on a step's loss
+            for k in ("loss_gen", "loss_disc"):
+                history[k] += torch.stack([m[k] for m in metrics]).cpu().tolist()
+            t_train = time.perf_counter() - t_ep
+            res = evaluate_gan_epoch(sampler, encoder, decoder, battery, val.images,
+                                     n_synthetic=n_synthetic, noise_factor=noise_factor,
+                                     enc_real=enc_real,
+                                     generator=ctx.keys.fold("gan_eval", ep, device=ctx.device))
+            fid, is_score, rec = (float(res.fid), float(res.inception_score),
+                                  float(res.rec_loss_syn))
+            t_eval = time.perf_counter() - t_ep - t_train
+            t_art = time.perf_counter()
+            history["fid"].append(fid)
+            history["is"].append(is_score)
+            history["rec_loss_syn"].append(rec)
+            mw.append(ep, loss_gen=history["loss_gen"][-1], loss_disc=history["loss_disc"][-1],
+                      fid=fid, inception_score=is_score, rec_loss_syn=rec)
+            # history first, the checkpoint last: a kill between the two
+            # leaves a state the resume reconciles (JAX :391-400)
+            save_pytree(ctx.run.general_dir / "history_gan.msgpack",
+                        {k: np.asarray(v, np.float64) for k, v in history.items()})
+            tree = state.tree()
+            ctx.ckpt.save_every_epoch("g", ep, tree, loss=history["loss_gen"][-1])
+            with torch.no_grad():
+                raw = state.gen.eval()(fixed_z)  # raw tanh output (util_report_gan.py:51)
+            if can["matplotlib"]:
+                reporting.plot_gan_training(history, ctx.run.plot_dir)
+                reporting.plot_posterior_polarization(
+                    res.p_yx.cpu().numpy(), classes,
+                    ctx.run.general_dir / f"class_polarization_{ep}.png")
+                reporting.plot_posterior_histograms(
+                    {"energy": res.energy.cpu().numpy(), "variance": res.variance.cpu().numpy()},
+                    ctx.run.general_dir, ep)
+            if can["PIL"]:
+                reporting.superimage(raw.cpu().numpy(),
+                                     ctx.run.general_dir / f"synthetic_images_{ep}.png",
+                                     drange=(-1, 1), cap=16)
+            # the best model by IS, saved on improvement (reference :279-283)
+            if is_score > best_is:
+                best_is, best_epoch, best_tree = is_score, ep, tree
+                ctx.ckpt.save_best("g", best_epoch, best_tree)
+            print(f"[{tag}] epoch {ep}: {len(metrics)} train steps {t_train:.6f}s, evaluation "
+                  f"{t_eval:.6f}s, artifacts {time.perf_counter() - t_art:.6f}s; fid={fid:.6f} "
+                  f"is={is_score:.6f} rec={rec:.6f}")
+
+    if not (ctx.ckpt.model_dir / "best_g.msgpack").exists():
+        # no epoch improved the IS (NaN throughout, say); the downstream
+        # stages need a best_g: the state the run started from (JAX :441-455)
+        print(f"[{tag}] WARNING: no epoch improved the inception score; saving the state of "
+              f"epoch {best_epoch} as best_g")
+        ctx.ckpt.save_best("g", best_epoch, best_tree)
+    mw.close()
+    ctx.run.write_timing({})  # (reference dcgan.py:209-214)
+    ctx.run.write_overall_history(history)
+    state.load_tree(best_tree)
+    state.gen.eval()
+    return state, history
 
 
 # -- assessor stages (reference src/training/cnn.py, cnn_multipatient.py) ----
@@ -1019,3 +1230,201 @@ def run_regularize_inverter_statistics(
     ctx.run.write_timing({})
     ctx.run.write_overall_history({k: list(v) for k, v in hist.items()})
     return z, w, hist
+
+
+# -- VQ-VAE stage (reference src/training/vq_vae.py) --------------------------
+
+
+def _vqvae_checkpoint(model: VQVAEGan) -> dict:
+    """{params, state} in the JAX layout, host copies (a CPU tensor's numpy
+    view would alias what the optimizer updates in place)."""
+    params, state = vqvae_tree({k: np.array(v.detach().cpu().numpy(), copy=True)
+                                for k, v in model.state_dict().items()})
+    return {"params": params, "state": state}
+
+
+def run_vqvae(ctx: StageContext, gen: nn.Module, pso_interim_dir=None,
+              epochs: int | None = None) -> tuple[VqvaeTrainState, dict, VQVAEGanDef]:
+    """Train the vqvae_dcgan (`model.latent_space`, `trainer`) for `epochs`
+    (default `trainer.epochs`) on the IiD train split in drange (−1, 1),
+    validated on the IiD and OoD test splits, with the trained generator
+    `gen` as its frozen decoder and, where `pso_interim_dir` names a
+    pso-discovery run, the final particles of its IiD classes as the
+    codebook (reference vq_vae.py:30-57: 32 particles x 8 classes = 256
+    rows). A codebook or decoder width other than
+    `model.latent_space.embedding_dim` is refused before training. Streams:
+    `vqvae` (the init), `vqvae_fixed_noise`, `epoch_{e}`. Each epoch writes
+    `img_loss_{phase}_{e+1}.png`, `synthetic_images_{e}.png` and
+    `model_{e+1}.msgpack`; then `best_vqvae.msgpack`, the loss figures,
+    `timing` and `overall_history`. Returns (the state with the best
+    weights, the history, the model's def)."""
+    cfg, tag = ctx.cfg, "vqvae"
+    d = VQVAEGanDef(channels_img=ctx.data_cfg.channel,
+                    embedded_dim=int(cfg.model.latent_space.embedding_dim),
+                    num_embedding=int(cfg.model.latent_space.num_embedding),
+                    features_g=int(cfg.model_gan.network.units_gen),
+                    features_d=int(cfg.model_gan.network.units_disc))
+    adam = AdamConfig.from_config(cfg.trainer.optimizer)
+    beta, bs = float(cfg.trainer.beta), int(cfg.trainer.batch_size)
+    epochs = epochs if epochs is not None else int(cfg.trainer.epochs)
+    data_pso = None
+    if pso_interim_dir is not None:
+        rows = [load_final_particle_positions(pso_interim_dir, c, "iid")
+                for c in ctx.data_cfg.iid_classes]
+        data_pso = np.concatenate(rows, axis=0)[: d.num_embedding]
+        if data_pso.shape[1] != d.embedded_dim:
+            # the reference works only while trainer_pso.dim_space equals
+            # model.latent_space.embedding_dim (vq_vae.py:44-47)
+            raise ValueError(
+                f"PSO particles in {pso_interim_dir} have dim {data_pso.shape[1]} but "
+                f"model.latent_space.embedding_dim={d.embedded_dim} — set embedding_dim to "
+                "the discovery run's trainer_pso.dim_space (the codebook IS those particle "
+                "positions)")
+    gen_z_dim = gen.gen[0][0].in_channels
+    if gen_z_dim != d.embedded_dim:
+        raise ValueError(
+            f"frozen decoder expects z_dim={gen_z_dim} inputs but "
+            f"model.latent_space.embedding_dim={d.embedded_dim} — the vqvae_dcgan decoder IS "
+            "the pretrained G, so embedding_dim must equal the GAN run's trainer_gan.z_dim")
+    can = _can_write(tag, (
+        ("matplotlib", "plots (img_loss_*.png, vqvae_training.png, reconstruction_loss.png, "
+                       "vq_loss.png)"),
+        ("PIL", "the decoder's fixed-noise samples (synthetic_images_*.png)")))
+
+    t0 = time.perf_counter()
+    iid = ctx.dataset("train", drange=(-1, 1))
+    val_iid = ctx.dataset("test", drange=(-1, 1))
+    val_ood = ctx.dataset("test", classes=ctx.data_cfg.ood_classes, drange=(-1, 1))
+    t_data = time.perf_counter() - t0
+    state = vqvae_init(ctx.keys("vqvae"), d, adam, data_pso=data_pso, frozen_gen=gen,
+                       device=ctx.device)
+    # drawn on the CPU, so the card and the CPU start alike
+    noise = torch.randn((32, d.embedded_dim, 1, 1), generator=ctx.keys("vqvae_fixed_noise"))
+    noise = noise.to(ctx.device)
+
+    def report(epoch: int, st: VqvaeTrainState) -> None:
+        """The reference's per-epoch panels and samples (vq_vae.py:221-234)
+        and `model_{e+1}` (:244-245), the model in eval mode."""
+        model = st.model.eval()
+        with torch.no_grad():
+            if can["matplotlib"]:
+                for phase, split in (("train", iid), ("val_ood", val_ood), ("val_iid", val_iid)):
+                    if len(split.images) == 0:
+                        continue
+                    x = split.images[:10]
+                    reporting.recon_panel(x.cpu().numpy(), model(x)[0].cpu().numpy(),
+                                          ctx.run.general_dir / f"img_loss_{phase}_{epoch + 1}.png")
+            if can["PIL"]:
+                reporting.superimage(model.decoder(noise).cpu().numpy(),
+                                     ctx.run.general_dir / f"synthetic_images_{epoch}.png",
+                                     drange=(-1, 1))
+        ctx.ckpt.save_state_dict(f"model_{epoch + 1}", _vqvae_checkpoint(model))
+
+    t0 = time.perf_counter()
+    with fp32_parity():
+        state, history, best_epoch = train_vqvae(
+            state, ctx.batches(iid, bs), ctx.batches(val_iid, bs, drop_last=False),
+            ctx.batches(val_ood, bs, drop_last=False), num_epochs=epochs, beta=beta,
+            metrics_writer=ctx.metrics("history_vqvae"), report_cb=report)
+    t_train = time.perf_counter() - t0
+    ctx.ckpt.save_best("vqvae", best_epoch, _vqvae_checkpoint(state.model))
+    if can["matplotlib"]:
+        reporting.plot_training_curves(history, ctx.run.reports_dir / "vqvae_training.png")
+        reporting.plot_vqvae_losses(history, ctx.run.plot_dir)
+    ctx.run.write_timing({})  # (reference vq_vae.py:247-257)
+    ctx.run.write_overall_history(history)
+    last = history["train_loss"][-1] if epochs else float("nan")
+    print(f"[{tag}] data {t_data:.6f}s ({iid.images.shape[0]} train, "
+          f"{val_iid.images.shape[0]} val IiD, {val_ood.images.shape[0]} val OoD images), "
+          f"codebook {'from PSO' if data_pso is not None else 'drawn'} "
+          f"{tuple(state.model.codebook.shape)}, {epochs} epochs {t_train:.6f}s, train loss "
+          f"{last:.6f}, best epoch {best_epoch}")
+    return state, history, d
+
+
+def load_vqvae(model_dir: str | Path, cfg, channels: int = 1, device=None) -> VQVAEGan:
+    """The vqvae_dcgan of a vqvae run's `best_vqvae.msgpack`, in eval mode:
+    the codebook's shape from the checkpoint, the conv widths from `cfg`'s
+    `model_gan.network`, checked against the checkpoint's encoder."""
+    device = resolve_device(device)
+    st = restore_tree(load_pytree(Path(model_dir) / "best_vqvae.msgpack")["state"])
+    params, model_state = st["params"], st["state"]
+    num_embedding, embedded_dim = (int(x) for x in params["codebook"].shape)
+    d = VQVAEGanDef(channels_img=channels, embedded_dim=embedded_dim,
+                    num_embedding=num_embedding,
+                    features_g=int(cfg.model_gan.network.units_gen),
+                    features_d=int(cfg.model_gan.network.units_disc))
+    ck_f = params["encoder"]["conv1"]["w"].shape[0]
+    if ck_f != d.features_d:
+        raise ValueError(
+            f"{model_dir}/best_vqvae.msgpack was trained with features_d={ck_f} but the "
+            f"config says units_disc={d.features_d} — pass the same config (and --tiny flag) "
+            "the vqvae run used")
+    model = VQVAEGan(d).to(device)
+    model.load_state_dict(to_tensors(vqvae_state_dict(params, model_state), device=device),
+                          strict=True)
+    return model.eval()
+
+
+def run_pixelcnn_prior_from_vqvae(ctx: StageContext, vqvae_model_dir: str | Path,
+                                  epochs: int | None = None, batch_size: int = 256):
+    """Encode the IiD train split to code indices with a vqvae run's model
+    (its codebook's shape from the checkpoint, not the config), `batch_size`
+    images at a time, and train the class-conditioned prior on them
+    (`run_pixelcnn_prior`, default 10 epochs). The reference ships its Gated
+    PixelCNN (utils_vq_vae/util_model.py:391-448) without a training entry;
+    the JAX package's stage is the contract."""
+    model = load_vqvae(vqvae_model_dir, ctx.cfg, ctx.data_cfg.channel, device=ctx.device)
+    ds = ctx.dataset("train", drange=(-1, 1))
+    with fp32_parity(), torch.no_grad():
+        indices = torch.cat([model.encode(ds.images[b:b + batch_size])
+                             for b in range(0, ds.images.shape[0], batch_size)])
+    labels = ds.labels.long()
+    return run_pixelcnn_prior(ctx, indices, labels, num_embedding=model.d.num_embedding,
+                              n_classes=int(labels.max()) + 1,
+                              epochs=epochs if epochs is not None else 10,
+                              batch_size=min(batch_size, len(labels)))
+
+
+def run_pixelcnn_prior(ctx: StageContext, indices, labels, num_embedding: int, n_classes: int,
+                       epochs: int = 10, batch_size: int = 128, dim: int = 64,
+                       n_layers: int = 8, lr: float = 3e-4) -> tuple[PixelCNN, PixelCNNDef, dict]:
+    """Train the Gated PixelCNN prior on `indices` [N, H, W] (code indices)
+    and `labels` [N] with Adam (lr 3e-4), in full batches of `batch_size`
+    (epoch e's order from the stream `pix_ep_{e}`, peeked), fp32 parity;
+    the init from the stream `pixelcnn`. Writes `pixelcnn.msgpack`
+    ({'params', 'def'}, the JAX layout), `history_pixelcnn` and the loss
+    curve. Returns (model, def, history)."""
+    d = PixelCNNDef(input_dim=num_embedding, dim=dim, n_layers=n_layers, n_classes=n_classes)
+    model = PixelCNN(d, ctx.keys("pixelcnn")).to(ctx.device)
+    params = list(model.parameters())
+    opt = torch.optim.Adam(params, lr=lr)
+    indices = torch.as_tensor(indices, device=ctx.device).long()
+    labels = torch.as_tensor(labels, device=ctx.device).long()
+    n = indices.shape[0]
+    history = {"train_loss": []}
+    mw = ctx.metrics("history_pixelcnn")
+    t0 = time.perf_counter()
+    with fp32_parity():
+        for epoch in range(epochs):
+            perm = torch.randperm(n, generator=ctx.keys.peek(f"pix_ep_{epoch}")).to(ctx.device)
+            losses = []
+            for b in range(0, n - batch_size + 1, batch_size):
+                sel = perm[b:b + batch_size]
+                loss = pixelcnn_loss(model, indices[sel], labels[sel])
+                optimizer_step(opt, params, loss)
+                losses.append(loss.detach())
+            tr = _epoch_mean(losses)
+            history["train_loss"].append(tr)
+            mw.append(epoch, train_loss=tr)
+    ctx.ckpt.save_state_dict("pixelcnn", {"params": pixelcnn_tree(model.state_dict()),
+                                          "def": d._asdict()})
+    if reporting.host_has("matplotlib"):
+        reporting.plot_training_curves(history, ctx.run.reports_dir / "pixelcnn_training.png")
+    else:
+        print("[pixelcnn_prior] not writing pixelcnn_training.png: matplotlib is not installed")
+    mw.close()
+    print(f"[pixelcnn_prior] {n} index grids {tuple(indices.shape[1:])}, K={num_embedding}, "
+          f"{n_classes} classes, {epochs} epochs {time.perf_counter() - t0:.6f}s, train loss "
+          f"{history['train_loss'][-1] if epochs else float('nan'):.6f}")
+    return model.eval(), d, history

@@ -1,7 +1,8 @@
 """Optimizers, losses and label smoothing of the port's training loops
 (counterpart of `gan_discovery_pso_tpu/train/common.py`: `make_optimizer`
 :17, `bce_from_logits` :43, `bce_on_probs` :49, `smooth_positive`/
-`smooth_negative` :57-64, `cross_entropy_loss` :70).
+`smooth_negative` :57-64, `cross_entropy_loss` :70), and the steps' two
+helpers, `frozen` and `optimizer_step`.
 
 The JAX package builds optax chains that reproduce torch's optimizers; here
 they are torch's own:
@@ -17,8 +18,11 @@ feed the steps the targets the JAX package drew.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from gan_discovery_pso_tpu_torch.core.config import AdamConfig
 
@@ -63,3 +67,26 @@ def smooth_positive(generator: torch.Generator, shape, device=None) -> torch.Ten
 def smooth_negative(generator: torch.Generator, shape, device=None) -> torch.Tensor:
     """class 0 → U[0, 0.3] (reference util_dcgan.py:77-83)."""
     return 0.3 * torch.rand(shape, generator=generator, device=device)
+
+
+@contextlib.contextmanager
+def frozen(*modules: nn.Module):
+    """requires_grad off for every parameter of `modules` (restored on
+    exit): gradients still flow through them to their inputs."""
+    params = [p for m in modules for p in m.parameters()]
+    saved = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in zip(params, saved):
+            p.requires_grad_(flag)
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer, params: list, loss: torch.Tensor) -> None:
+    """One optimizer step on d loss / d params, computed for params only
+    (`torch.autograd.grad`), so no other tensor's `.grad` changes."""
+    for p, g in zip(params, torch.autograd.grad(loss, params)):
+        p.grad = g
+    optimizer.step()

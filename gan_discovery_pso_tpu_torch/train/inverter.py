@@ -39,8 +39,6 @@ packages agree to rounding, not bit for bit.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 from torch import nn
@@ -48,7 +46,9 @@ from torch import nn
 from gan_discovery_pso_tpu_torch.core.config import AdamConfig
 from gan_discovery_pso_tpu_torch.train.common import (
     bce_from_logits,
+    frozen,
     make_optimizer,
+    optimizer_step,
     smooth_negative,
     smooth_positive,
 )
@@ -60,30 +60,8 @@ W_REC, W_FEA, W_ADV, R1_GAMMA = 1.0, 1.0, 0.1, 10.0
 INVERT_LR, WEIGHTS_LR, LOSS_REG_WEIGHT = 1e-2, 0.1, 2.0
 
 
-@contextlib.contextmanager
-def frozen(*modules: nn.Module):
-    """requires_grad off for every parameter of `modules` (restored on
-    exit): gradients still flow through them to their inputs."""
-    params = [p for m in modules for p in m.parameters()]
-    saved = [p.requires_grad for p in params]
-    for p in params:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p, flag in zip(params, saved):
-            p.requires_grad_(flag)
-
-
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean((a - b) ** 2)
-
-
-def _step(optimizer: torch.optim.Optimizer, params: list, loss: torch.Tensor) -> None:
-    """One optimizer step on d loss / d params, computed for params only."""
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
-        p.grad = g
-    optimizer.step()
 
 
 def _targets(draw, bs: int, device, negatives: bool = True) -> tuple:
@@ -115,7 +93,7 @@ def make_pix_rec_step(gen: nn.Module, encoder: nn.Module, adam: AdamConfig):
         encoder.train()
         with frozen(gen):
             loss = _mse(real, gen(encoder(real)))
-            _step(opt, params, loss)
+            optimizer_step(opt, params, loss)
         return loss.detach()
 
     @torch.no_grad()
@@ -173,7 +151,7 @@ def make_pix_fea_rec_adv_step(gen: nn.Module, encoder: nn.Module, disc: nn.Modul
                           + bce_from_logits(disc.logits(fake_const), y_fake)) / 2.0
             loss_d_r1 = r1_penalty(disc, real) * (R1_GAMMA * 0.5)
             loss_d = loss_d_adv + loss_d_r1
-            _step(opt_d, d_params, loss_d)
+            optimizer_step(opt_d, d_params, loss_d)
             # E step against the updated D (reference :399-420)
             with torch.no_grad():
                 feat_real = cnn.features(real)
@@ -182,7 +160,7 @@ def make_pix_fea_rec_adv_step(gen: nn.Module, encoder: nn.Module, disc: nn.Modul
                 l_fea = W_FEA * _mse(cnn.features(fake), feat_real)
                 l_adv = W_ADV * bce_from_logits(disc.logits(fake), y_real)
                 loss_e = l_pix + l_fea + l_adv
-                _step(opt_e, e_params, loss_e)
+                optimizer_step(opt_e, e_params, loss_e)
         return {k: v.detach() for k, v in (
             ("loss_disc", loss_d), ("loss_disc_adv", loss_d_adv),
             ("loss_disc_r1penalty", loss_d_r1), ("loss_enc", loss_e),
@@ -235,7 +213,7 @@ def invert(x: torch.Tensor, gen: nn.Module, encoder: nn.Module, iterations: int 
             loss_pix = torch.sum(torch.mean((x - x_rec) ** 2, dim=(1, 2, 3)))
             loss_reg = torch.sum(torch.mean((z - encoder(x_rec)) ** 2, dim=(1, 2, 3)))
             loss = loss_pix + loss_reg * LOSS_REG_WEIGHT
-            _step(opt, [z], loss)
+            optimizer_step(opt, [z], loss)
             rows.append(torch.stack([loss, loss_pix, loss_reg]).detach() / n_img)
             if record_z:
                 zs.append(z.detach().clone())
@@ -291,7 +269,7 @@ def invert_bn(x: torch.Tensor, gen: nn.Module, encoder: nn.Module, class_particl
             pix_i = torch.mean((x - gen(z_mix)) ** 2, dim=(1, 2, 3))
             loss = torch.sum(pix_i)
             z_final, w_final = z_mix.detach(), w.detach().clone()
-            _step(opt, [z, w], loss)
+            optimizer_step(opt, [z, w], loss)
             rows.append(torch.stack([loss / n_img, torch.mean(pix_i)]).detach())
     hist = torch.stack(rows).cpu().numpy()
     return z_final, w_final, {"loss": hist[:, 0], "loss_pix": hist[:, 1]}
