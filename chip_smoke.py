@@ -49,7 +49,16 @@ epoch, FID, IS and rec finite; 1 + 1 resumed epochs byte-equal to the 2;
 `vqvae` at embedding 100 and K 256, 1 epoch, its decoder the main path's
 G and its codebook the pipeline phase's batched particles, checked at init,
 its decoder bit-equal to G after training and a rerun byte-equal;
-`pixelcnn-prior` on it, 1 epoch; no port kernel in the last two), then times
+`pixelcnn-prior` on it, 1 epoch; no port kernel in the last two), runs the
+latent analyses and the CLARO export through their CLI (the analysis and
+CLARO phase: `pso-analysis` on the pipeline phase's particles, 51 PCA +
+UMAP fits of 256 x 100; `pso-analysis-clustering` with kmeans and em, the
+inverter phase's 256 OoD latents overlaid, and on the dimension-2 run;
+`pso-analysis-distance`; `pso-inverter-analysis`; `claro-preprocess` on 2 x
+64 CT slices of 512 x 512 at 256, a rerun byte-equal; `augment_batch` on
+the 128 slices; PCA, the labels, UMAP's graph and 10 layout epochs, the
+distances, the resize, the stack and the augmentation on the card against
+the CPU; no port kernel on these paths), then times
 each kernel at the main path's shape and at a large one (device µs per
 launch from the profiler over the last 50 of 60 calls in a session, as
 the profiler loses the kernel events of a session's first calls; beside
@@ -71,6 +80,7 @@ import itertools
 import json
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -733,13 +743,14 @@ def direct_runner(models, device, cfg_sets) -> tuple:
 
 
 def pipeline_phase(models, device, kernels, card: str, after_step=None,
-                   keep_interim: Path | None = None) -> dict:
+                   keep_interim: Path | None = None, keep_dim2: Path | None = None) -> dict:
     """The pso-discovery stage through its CLI on JAX-format checkpoints of
     the seeded full-width models: batched fp32 (bit-equal to the runner
     called directly), sequential (B = 1 per class), the shipped dimension 2
     with its landscape, and bf16. Returns each run's launches.
     `after_step(name)`, where given, is called after each step; the batched
-    fp32 run's interim dir is copied to `keep_interim`, where given."""
+    fp32 run's interim dir is copied to `keep_interim` and the dimension-2
+    run's to `keep_dim2`, where given."""
     import shutil
     import tempfile
 
@@ -808,6 +819,8 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
                                "rescale01_rows": hp_iters + len(classes)})
         check_g_best(dim2, len(classes))
         check_artifacts(dim2, classes, 2, hp_iters)
+        if keep_dim2 is not None:
+            shutil.copytree(dim2["interim"], keep_dim2)
         for c in classes:
             if dim2["trajectories"][str(c)][0].shape != (hp_iters + 1, n_particles, 2):
                 raise AssertionError(f"pipeline dim2: class {c} trajectory "
@@ -896,13 +909,15 @@ def same_swarm(a, b, what: str) -> None:
         raise AssertionError(f"inverter: {what} differs from the CLI run")
 
 
-def inverter_phase(models, device, kernels, card: str, sets=()) -> dict:
+def inverter_phase(models, device, kernels, card: str, sets=(),
+                   keep_interim: Path | None = None) -> dict:
     """The pso-inverter stage on JAX-format checkpoints: through its CLI
     (1-epoch fine-tune, 256 particles x 50 iterations, fp32), again on a
     run dir that holds the fine-tuned assessor (the try-load branch), the
     runner called directly on the stage's draws, and bf16 on the try-load
     branch. Returns each run's launches. `sets` adds config overrides (a
-    rehearsal on the CPU cuts the sizes)."""
+    rehearsal on the CPU cuts the sizes); the CLI run's interim dir (the
+    patient's OoD particles) is copied to `keep_interim`, where given."""
     import copy
     import shutil
     import tempfile
@@ -953,6 +968,8 @@ def inverter_phase(models, device, kernels, card: str, sets=()) -> dict:
         if out["inverter_cli"] != dict.fromkeys(names, n_iters):
             raise AssertionError(f"inverter CLI launches {out['inverter_cli']}, not {n_iters} each")
         reports, models_dir = cli["reports"], cli["model"]
+        if keep_interim is not None:
+            shutil.copytree(cli["interim"], keep_interim)
         g32 = check_inverter_g_best(res.g_best_val[0], "CLI")
         with open(reports / "general" / "overall_history.pkl", "rb") as f:
             history = pickle.load(f)
@@ -1313,12 +1330,12 @@ def inverter_training_phase(models, device, kernels, card: str, pso_interim: Pat
 
 
 def cli_stage(tmp: Path, label: str, stage: str, device, kernels, *args, sets=None,
-              keep: str | None = None) -> dict:
-    """`cli.main([stage, ...])` in this process, its run dirs under
-    tmp/label: the wall time, the launches of each kernel (counts zeroed
-    just before), the run dirs, the text of its log.txt, and what
-    `pipelines.<keep>` returned, where `keep` names the stage function. A
-    non-zero return raises."""
+              keep: str | None = None, cfg: Path = CFG, dataset: str = "mnist") -> dict:
+    """`cli.main([stage, "--cfg", cfg, ...])` in this process, its run dirs
+    under tmp/label/<dataset>: the wall time, the launches of each kernel
+    (counts zeroed just before), the run dirs, the text of its log.txt, and
+    what `pipelines.<keep>` returned, where `keep` names the stage
+    function. A non-zero return raises."""
     import torch
 
     from gan_discovery_pso_tpu_torch import pipelines
@@ -1326,7 +1343,7 @@ def cli_stage(tmp: Path, label: str, stage: str, device, kernels, *args, sets=No
 
     roots = {k: tmp / label / k for k in ("reports", "model", "interim")}
     cfg_sets = {**(sets or {}), **{f"data.{k}_dir": v for k, v in roots.items()}}
-    argv = [stage, "--cfg", str(CFG), "--device", str(device), *args, "--set",
+    argv = [stage, "--cfg", str(cfg), "--device", str(device), *args, "--set",
             *(f"{k}={v}" for k, v in cfg_sets.items())]
     kept = {}
     real = getattr(pipelines, keep) if keep else None
@@ -1348,7 +1365,7 @@ def cli_stage(tmp: Path, label: str, stage: str, device, kernels, *args, sets=No
             setattr(pipelines, keep, real)
     if rc != 0:
         raise AssertionError(f"{label}: the CLI returned {rc}")
-    run_dirs = {k: v / "mnist" / f"00001--{stage.replace('-', '_')}" for k, v in roots.items()}
+    run_dirs = {k: v / dataset / f"00001--{stage.replace('-', '_')}" for k, v in roots.items()}
     return {"wall": wall, "launches": {k.__name__: k.launches for k in kernels},
             "value": kept.get("value"), "log": (run_dirs["reports"] / "log.txt").read_text(),
             **run_dirs}
@@ -1872,6 +1889,423 @@ def gan_vqvae_phase(models, device, kernels, card: str, upstream: Path, pso_inte
     return out
 
 
+CLARO_CFG = ROOT / "configs" / "claro_preprocess.yaml"
+CLARO_PATIENTS, CLARO_SLICES, CT_SIZE = 2, 64, 512  # 2 patients x 64 slices of 512 x 512 HU
+UMAP_CHECK_EPOCHS = 10  # layout epochs held card vs CPU, each from the same state
+UMAP_TIMED_FITS = 5  # default fits of the final positions timed one by one
+# the graph's float values card vs CPU: its distances come from the expanded
+# form, whose float64 rounding (~eps·‖x‖²/d) differs between cuBLAS and the
+# CPU's BLAS; rho reached 1e-9 relative on the pipeline's particles
+UMAP_GRAPH_TOL = 1e-7
+UMAP_EPOCH_RTOL = 1e-4  # of the embedding's largest |value|, one epoch
+PCA_RTOL = 1e-9
+# a pair's squared distance, card vs CPU: float32 particles by the expanded
+# form ‖a‖² + ‖b‖² − 2a·b, as the JAX package computes it, whose rounding
+# differs between cuBLAS and the CPU's BLAS by up to ~√d·eps·(‖a‖² + ‖b‖²);
+# the bound is 8 times that
+DISTANCE_SQ_BOUND = 8.0
+RESIZE_TOL = 2e-6  # of the input's range (ops/resize.py)
+CLARO_TOL = 5e-6  # a preprocessed slice in [0, 1]: the resize's error over the 2000 HU scale
+AUGMENT_TOL = 1e-4  # an augmented image in [0, 1]
+
+
+def write_claro_input(root: Path, seed: int = SEED) -> list:
+    """CLARO_PATIENTS x CLARO_SLICES int16 CT slices of CT_SIZE² in HU (air
+    -1000, a body ellipse of soft tissue, two lungs around -800, noise),
+    written by the port's TIFF writer under raw/<dataset>/<patient>/images,
+    the patients_info manifest under interim/<dataset>/, and a box manifest
+    of lung-sized boxes (some leave the frame once squared). Returns the
+    slice ids."""
+    from gan_discovery_pso_tpu_torch.data.tiff import write_tiff
+    from gan_discovery_pso_tpu_torch.data.xlsx import write_xlsx
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:CT_SIZE, :CT_SIZE] / CT_SIZE - 0.5
+    body = (yy / 0.38) ** 2 + (xx / 0.46) ** 2 < 1
+    lungs = ((yy / 0.27) ** 2 + ((xx - 0.18) / 0.14) ** 2 < 1) | (
+        (yy / 0.27) ** 2 + ((xx + 0.18) / 0.14) ** 2 < 1)
+    dataset = "claro_prospettivo"
+    ids, boxes = [], []
+    for p in range(CLARO_PATIENTS):
+        d = root / "raw" / dataset / f"PAT{p + 1}" / "images"
+        d.mkdir(parents=True)
+        for s in range(CLARO_SLICES):
+            hu = np.where(body, 40.0, -1000.0) + np.where(lungs, -840.0, 0.0)
+            hu += rng.normal(0, 30, hu.shape) + 300 * np.sin(3 * xx + s / 9.0) * body
+            sid = f"PAT{p + 1}_{s}"
+            write_tiff(d / f"{sid}.tif", np.clip(hu, -1024, 3071).astype(np.int16))
+            y0, x0 = rng.randint(110, 150), rng.randint(60, 100)
+            boxes.append(f"[{y0}, {x0}, {y0 + rng.randint(250, 300)}, "
+                         f"{x0 + rng.randint(330, 390)}]")
+            ids.append(sid)
+    info = root / "interim" / dataset
+    info.mkdir(parents=True)
+    write_xlsx(info / f"patients_info_{dataset}.xlsx",
+               {"image": [f"{i.split('_')[0]}/images/{i}.tif" for i in ids]})
+    write_xlsx(root / "boxes.xlsx", {"img ID": ids, "max_box": boxes})
+    return ids
+
+
+def umap_card_vs_cpu(x: np.ndarray, device) -> dict:
+    """UMAP on the card against the CPU on the same [N, d] points:
+    - the graph's rows: the k nearest equal, rho and sigma within
+      UMAP_GRAPH_TOL relative and the memberships (in [0, 1]) within
+      UMAP_GRAPH_TOL, on every row but those whose first k+1
+      distances hold a near-tie (k-th and (k+1)-th within UMAP_GRAPH_TOL) or a
+      distance at the expanded form's rounding level (d² ≤ 64·eps·2·max‖x‖²:
+      duplicate particles of a converged swarm), which are counted; where
+      no row is excluded, the edges (heads, tails) equal and their weights
+      within UMAP_GRAPH_TOL;
+    - UMAP_CHECK_EPOCHS layout epochs on the CPU's graph, each run on both
+      from the card's state with the same draws, within UMAP_EPOCH_RTOL of
+      the scale; the divergence of 10 epochs run apart (reported: the
+      layout is chaotic at rounding level);
+    - a full default fit twice on the card, bit-equal;
+    - UMAP_TIMED_FITS default fits timed one by one, and one fit and its
+      layout alone profiled (`profile_umap`)."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.analysis.cluster import PCA
+    from gan_discovery_pso_tpu_torch.analysis.umap_impl import (
+        UMAP, LayoutDraws, _knn, _memberships, _smooth_knn, find_ab_params, layout_draws,
+        optimize_layout)
+
+    k = UMAP(device=device).n_neighbors
+    rows, graphs = {}, {}
+    for dev in (device, torch.device("cpu")):
+        xt = torch.as_tensor(x, dtype=torch.float64, device=dev)
+        idx, d = _knn(xt, k + 1)
+        rho, sigma = _smooth_knn(d[:, :k], k)
+        rows[dev.type] = [v.cpu() for v in (idx[:, :k], d, rho, sigma,
+                                            _memberships(d[:, :k], rho, sigma))]
+        graphs[dev.type] = [v.cpu() for v in UMAP(device=dev).build_graph(xt)[1]]
+    (i_a, _, *vals_a), (i_b, d_b, *vals_b) = rows[device.type], rows["cpu"]
+    floor = 64 * np.finfo(np.float64).eps * 2 * float((x.astype(np.float64) ** 2).sum(1).max())
+    excluded = ((d_b ** 2 <= floor).any(dim=1)
+                | ((d_b[:, k] - d_b[:, k - 1]).abs() <= UMAP_GRAPH_TOL * d_b[:, k]))
+    clean = ~excluded
+    worst = {}
+    if not torch.equal(i_a[clean], i_b[clean]):
+        raise AssertionError("umap graph: the k nearest differ between the card and the CPU "
+                             f"on {int((i_a != i_b).any(1)[clean].sum())} clean rows")
+    for name, a, b in zip(("rho", "sigma", "memberships"), vals_a, vals_b):
+        a, b = a[clean], b[clean]
+        scale = b.abs() if name != "memberships" else torch.ones_like(b)  # those in [0, 1]
+        worst[name] = float(((a - b).abs() / scale.clamp_min(1e-300)).max()) if len(b) else 0.0
+        if worst[name] > UMAP_GRAPH_TOL:
+            raise AssertionError(f"umap graph: {name} card vs CPU {worst[name]:.3e} > "
+                                 f"{UMAP_GRAPH_TOL}")
+    (h_a, t_a, w_a), (h, t, w) = graphs[device.type], graphs["cpu"]
+    if not bool(excluded.any()):
+        if not (torch.equal(h_a, h) and torch.equal(t_a, t)):
+            raise AssertionError("umap graph: the edges differ between the card and the CPU")
+        worst["weights"] = float((w_a - w).abs().max())  # in [0, 1]
+        if worst["weights"] > UMAP_GRAPH_TOL:
+            raise AssertionError(f"umap graph: weights card vs CPU {worst['weights']:.3e}")
+    init = PCA(2, device="cpu").fit_transform(x)
+    init = init / np.abs(init).max() * 10.0
+    init = init + np.random.RandomState(42).normal(0, 1e-4, init.shape)
+    a, b = find_ab_params(1.0, 0.1)
+    probs = (w / w.max()).to(torch.float32)
+    draws = layout_draws(200, len(h), 5, len(x), 42, device="cpu")
+    on = lambda dev: dict(heads=h.to(dev), tails=t.to(dev), probs=probs.to(dev),  # noqa: E731
+                          draws=LayoutDraws(*(d.to(dev) for d in draws)))
+    args_card, args_cpu = on(device), on("cpu")
+    y = torch.as_tensor(init, dtype=torch.float32)
+    worst_epoch = 0.0
+    for ep in range(UMAP_CHECK_EPOCHS):
+        nxt = optimize_layout(y.to(device), None, a=a, b=b, lr=1.0, epochs=[ep],
+                              **args_card).cpu()
+        ref = optimize_layout(y, None, a=a, b=b, lr=1.0, epochs=[ep], **args_cpu)
+        err = float((nxt - ref).abs().max() / ref.abs().max())
+        worst_epoch = max(worst_epoch, err)
+        if err > UMAP_EPOCH_RTOL:
+            raise AssertionError(f"umap epoch {ep}: card vs CPU {err:.3e} of the scale > "
+                                 f"{UMAP_EPOCH_RTOL}")
+        y = nxt
+    apart = [optimize_layout(torch.as_tensor(init, dtype=torch.float32).to(dev), None, a=a,
+                             b=b, lr=1.0, epochs=range(UMAP_CHECK_EPOCHS), **args).cpu()
+             for dev, args in ((device, args_card), ("cpu", args_cpu))]
+    fits = [UMAP(device=device).fit_transform(x) for _ in range(2)]
+    if not np.array_equal(*fits):
+        raise AssertionError("umap: two fits on the card differ")
+    fit_s = []
+    for _ in range(UMAP_TIMED_FITS):
+        t0 = time.perf_counter()
+        UMAP(device=device).fit_transform(x)
+        fit_s.append(time.perf_counter() - t0)
+    y0 = torch.as_tensor(init, dtype=torch.float32, device=device)
+    profiled = profile_umap(
+        lambda: UMAP(device=device).fit_transform(x),
+        lambda: optimize_layout(y0, None, a=a, b=b, lr=1.0, **args_card),
+        n_epochs=len(draws.uniform))
+    return {"graph_edges": int(len(h)), "graph_rows_excluded": int(excluded.sum()),
+            "graph_card_vs_cpu_rel": worst, "epoch_worst_rel": worst_epoch,
+            "epochs_apart_max_abs": float((apart[0] - apart[1]).abs().max()),
+            "scale": float(apart[1].abs().max()), "rerun_bit_equal": True,
+            "fit_s": fit_s, "profile": profiled}
+
+
+def profile_umap(fit, layout, n_epochs: int) -> dict:
+    """Where a default UMAP fit's time goes on the card: `fit` (the whole
+    fit) and `layout` (its `n_epochs` layout epochs alone), each once warm
+    and once under torch.profiler: wall, device busy time and idle share
+    (`device_summary`), the device events (kernels, copies, sets) per
+    epoch, and the host's calls that copy or wait, by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in (("fit", fit), ("layout", layout)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        device_events, host_waits = 0, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                device_events += not getattr(e, "is_user_annotation", False)
+            elif e.name.startswith("cuda") and ("Sync" in e.name or "Memcpy" in e.name):
+                host_waits[e.name] = host_waits.get(e.name, 0) + 1
+        out[name] = {**device_summary(prof, seconds),
+                     "device_events_per_epoch": device_events / n_epochs,
+                     "host_copy_or_sync_calls": host_waits}
+    return out
+
+
+def analysis_claro_phase(device, kernels, card: str, pso_interim: Path, dim2_interim: Path,
+                         ood_interim: Path, sets=()) -> dict:
+    """The latent analyses and the CLARO data layer through the CLI, on the
+    card, at the shipped sizes:
+    1. `pso-analysis` on the pipeline phase's batched particles (8 classes
+       x 32 particles x 51 recorded iterations, z = 100): 51 PCA + UMAP fits
+       of 256 x 100 and the final one; the stage's PCA and UMAP seconds;
+       the final positions' PCA card vs CPU (PCA_RTOL, allowing for sign)
+       and UMAP (`umap_card_vs_cpu`);
+    2. `pso-analysis-clustering` with kmeans and with em on the same
+       particles, the inverter phase's 256 OoD latents overlaid (patient
+       PATIENT), and on the dimension-2 run with each: the fitted
+       {algorithm}.pkl's labels equal to a CPU fit's, its assignment of the
+       OoD latents equal to the CPU model's;
+    3. `pso-analysis-distance`, and every pair's distance of it on the
+       card against the CPU within DISTANCE_SQ_BOUND (in squared distance:
+       the expanded form's float32 rounding); the summary's difference
+       from a CPU run reported (a converged class's distances are at that
+       rounding, so its mean and std carry no digits to hold);
+    4. `pso-inverter-analysis` of the 256 OoD latents: the assignment equal
+       to the CPU clustering's;
+    5. `claro-preprocess` at configs/claro_preprocess.yaml's image_size 256
+       on `write_claro_input`'s 128 slices, and a rerun byte-equal; the
+       resize of the 128 cropped slices card vs CPU (RESIZE_TOL of the
+       range), 8 slices of the stack card vs CPU (CLARO_TOL);
+    6. `augment_batch` on the 128 x 1 x 256 x 256 stack with zoom and
+       elastic on, draws from `draw_augment`: its time, card vs CPU
+       (AUGMENT_TOL).
+    No port kernel is on these paths: B1 and B2 launch 0 times in each.
+    Returns each run's launches."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.analysis.latent import (
+        cluster_latents, mutual_distance, pca_project)
+    from gan_discovery_pso_tpu_torch.data.augment import (
+        AugmentConfig, augment_batch, draw_augment)
+    from gan_discovery_pso_tpu_torch.data.medical import (
+        ClipSpec, crop_box, load_tiff, prepare_patient_dataset, read_box_manifest)
+    from gan_discovery_pso_tpu_torch.ops.resize import resize_bilinear
+    from gan_discovery_pso_tpu_torch.pso import load_final_particle_positions
+
+    t_phase = time.perf_counter()
+    host = {p: importlib.util.find_spec(p) is not None for p in ("sklearn", "PIL", "matplotlib")}
+    log(f"analysis and claro: importable on this host: {json.dumps(host)}")
+    names = [k.__name__ for k in kernels]
+    none = dict.fromkeys(names, 0)
+    out, report = {}, {}
+    cpu = torch.device("cpu")
+    iid = (0, 2, 3, 4, 6, 7, 8, 9)  # the pipeline phase's classes (configs/dcgan_mnist.yaml)
+    overlay = {"data.ood_classes": f"[{PATIENT}]", **dict(sets)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ana_") as tmp_name:
+        tmp = Path(tmp_name)
+
+        def stage(label, name, *args, dev=device, **kw):
+            run = cli_stage(tmp, label, name, dev, kernels, *args, **kw)
+            tag = f"[{name.replace('-', '_')}]"
+            report[label] = {"stage_s": run["wall"], "launches": run["launches"],
+                             "log": [ln for ln in run["log"].splitlines()
+                                     if ln.startswith(tag) and "done →" not in ln]}
+            out[label] = run["launches"]
+            return run
+
+        # 1. pso-analysis: 51 PCA + UMAP fits of 256 x 100
+        run = stage("pso_analysis", "pso-analysis", "--path-pso", str(pso_interim),
+                    sets=dict(sets))
+        line = next(ln for ln in report["pso_analysis"]["log"] if "iterations of" in ln)
+        fit_s = {k: log_seconds(line, rf"{k} ([0-9.]+) s") for k in ("pca", "umap", "plots")}
+        report["pso_analysis"].update(fit_s, umap_share=fit_s["umap"] / run["wall"])
+        with open(run["reports"] / "general" / "overall_history.pkl", "rb") as f:
+            hist = pickle.load(f)
+        final = np.concatenate([load_final_particle_positions(pso_interim, c) for c in iid])
+        if hist["pca"].shape != (len(final), 2) or not np.isfinite(hist["umap"]).all():
+            raise AssertionError(f"pso-analysis: pca {hist['pca'].shape}, umap finite "
+                                 f"{np.isfinite(hist['umap']).all()}")
+        (p_card, m_card), (p_cpu, m_cpu) = (
+            pca_project(final, min(final.shape), return_model=True, device=d)
+            for d in (device, cpu))
+        var_err = float(np.abs(m_card.explained_variance_ - m_cpu.explained_variance_).max()
+                        / m_cpu.explained_variance_.max())
+        # the plotted components; a converged swarm leaves trailing ones degenerate
+        sign = np.sign((p_card[:, :2] * p_cpu[:, :2]).sum(axis=0))
+        pca_err = float(np.abs(p_card[:, :2] * sign - p_cpu[:, :2]).max()
+                        / np.abs(p_cpu[:, :2]).max())
+        if max(pca_err, var_err) > PCA_RTOL:
+            raise AssertionError(f"pso-analysis: PCA card vs CPU {pca_err:.3e}, variances "
+                                 f"{var_err:.3e} > {PCA_RTOL} (signs {sign})")
+        report["pso_analysis"]["pca_signs_card_vs_cpu"] = sign.tolist()
+        report["pso_analysis"]["pca_variance_card_vs_cpu_rel"] = var_err
+        report["pso_analysis"]["pca_card_vs_cpu_rel"] = pca_err
+        report["pso_analysis"]["umap_card_vs_cpu"] = umap_card_vs_cpu(final, device)
+
+        # 2. pso-analysis-clustering: kmeans and em, 100-d with the OoD overlay, and dim 2
+        ood = load_final_particle_positions(ood_interim, PATIENT, "ood").astype(np.float64)
+        for algo in ("kmeans", "em"):
+            for dim, src in ((DIM, pso_interim), (2, dim2_interim)):
+                label = f"clustering_{algo}_{dim}"
+                flags = ("--path-ood-pso", str(ood_interim)) if dim == DIM else ()
+                run = stage(label, "pso-analysis-clustering", "--path-pso", str(src), *flags,
+                            sets={**overlay, "trainer_pso_analysis.clustering_algorithm": algo})
+                data = np.concatenate([load_final_particle_positions(src, c) for c in iid])
+                with open(run["model"] / f"{algo}.pkl", "rb") as f:
+                    model = pickle.load(f)
+                labels, _, cpu_model = cluster_latents(data, algo, len(iid), seed=42, device=cpu)
+                if not np.array_equal(model.predict(data), labels):
+                    raise AssertionError(f"{label}: labels on the card differ from the CPU's")
+                if dim == DIM:
+                    got = json.loads((run["reports"] / "ood_cluster_assignment.json").read_text())
+                    want = cpu_model.predict(ood).tolist()
+                    if got[str(PATIENT)]["assignment"] != want:
+                        raise AssertionError(f"{label}: OoD assignment differs from the CPU's")
+                report[label]["clusters"] = int(len(np.unique(labels)))
+
+        # 3. pso-analysis-distance, card and CPU
+        run = stage("distance", "pso-analysis-distance", "--path-pso", str(pso_interim),
+                    sets=dict(sets))
+        ref = cli_stage(tmp, "distance_cpu", "pso-analysis-distance", cpu, kernels,
+                        "--path-pso", str(pso_interim), sets=dict(sets))
+        got, want = (json.loads((r["reports"] / "distance_summary.json").read_text())
+                     for r in (run, ref))
+        if got.keys() != want.keys():
+            raise AssertionError(f"distance: keys {sorted(got)} vs {sorted(want)}")
+        mats = {c: load_final_particle_positions(pso_interim, c)[:250] for c in iid}
+        worst = 0.0
+        for i, a in enumerate(iid):
+            for b in iid[i:]:
+                sq = [mutual_distance(mats[a], mats[b], device=d).astype(np.float64) ** 2
+                      for d in (device, cpu)]
+                norms = ((mats[a].astype(np.float64) ** 2).sum(1)[:, None]
+                         + (mats[b].astype(np.float64) ** 2).sum(1)[None, :]).ravel()
+                bound = np.sqrt(DIM) * np.finfo(np.float32).eps * norms
+                worst = max(worst, float((np.abs(sq[0] - sq[1]) / bound).max()))
+        if worst > DISTANCE_SQ_BOUND:
+            raise AssertionError(f"distance: a pair's squared distance card vs CPU is "
+                                 f"{worst:.3f} x sqrt(d)·eps·(|a|²+|b|²) > "
+                                 f"{DISTANCE_SQ_BOUND}")
+        report["distance"].update(
+            pair_sq_error_over_rounding=worst,
+            summary_card_vs_cpu_rel=max(abs(got[k][s] - want[k][s]) / abs(want[k][s])
+                                        for k in want for s in ("mean", "std")))
+
+        # 4. pso-inverter-analysis on the 256 OoD latents
+        run = stage("inverter_analysis", "pso-inverter-analysis", "--path-pso", str(pso_interim),
+                    "--path-ood-pso", str(ood_interim), "--ood-patient", str(PATIENT),
+                    sets=dict(sets))
+        rep = json.loads((run["reports"] / f"ood_patient_{PATIENT}_cluster_assignment.json")
+                         .read_text())
+        data = np.concatenate([load_final_particle_positions(pso_interim, c) for c in iid])
+        _, _, cpu_model = cluster_latents(data, rep["algorithm"], len(iid), seed=42, device=cpu)
+        if rep["n_ood_latents"] != len(ood) or rep["cluster_assignment"] != \
+                cpu_model.predict(ood).tolist():
+            raise AssertionError("inverter analysis: the assignment differs from the CPU's")
+        report["inverter_analysis"]["cluster_counts"] = rep["cluster_counts"]
+
+        # 5. claro-preprocess at 256 on 2 x 64 slices of 512 x 512, and a rerun
+        t0 = time.perf_counter()
+        root = tmp / "claro_input"
+        ids = write_claro_input(root)
+        write_s = time.perf_counter() - t0
+        claro = {"data.data_dir": str(root / "raw"), "data.box_file": str(root / "boxes.xlsx"),
+                 **dict(sets)}
+        runs = []
+        for label in ("claro", "claro_rerun"):
+            shutil.copytree(root / "interim" / "claro_prospettivo",
+                            tmp / label / "interim" / "claro_prospettivo")
+            runs.append(stage(label, "claro-preprocess", cfg=CLARO_CFG,
+                              dataset="claro_prospettivo", sets=claro))
+        stack = np.load(runs[0]["interim"] / "claro_preprocessed.npz")["images"]
+        again = np.load(runs[1]["interim"] / "claro_preprocessed.npz")["images"]
+        tifs = sorted((runs[0]["interim"] / "stylegan").glob("*.tif"))
+        if stack.shape != (len(ids), 1, 256, 256) or len(tifs) != len(ids) or not (
+                np.isfinite(stack).all() and stack.min() >= 0 and stack.max() <= 1):
+            raise AssertionError(f"claro: stack {stack.shape} in [{stack.min()}, "
+                                 f"{stack.max()}], {len(tifs)} TIFFs")
+        if not np.array_equal(stack, again) or any(
+                p.read_bytes() != (runs[1]["interim"] / "stylegan" / p.name).read_bytes()
+                for p in tifs):
+            raise AssertionError("claro: the rerun's stack or TIFFs differ")
+        boxes = read_box_manifest(root / "boxes.xlsx", "max_box")
+        crops = [crop_box(load_tiff(root / "raw" / "claro_prospettivo" / i.split("_")[0] /
+                                    "images" / f"{i}.tif"), boxes[i], 0.5) for i in sorted(ids)]
+        worst = 0.0
+        for c in crops:
+            x = torch.as_tensor(np.asarray(c, np.float32))
+            diff = (resize_bilinear(x.to(device), 256).cpu() - resize_bilinear(x, 256)).abs()
+            worst = max(worst, float(diff.max() / (x.max() - x.min())))
+        if worst > RESIZE_TOL:
+            raise AssertionError(f"resize: card vs CPU {worst:.3e} of the range > {RESIZE_TOL}")
+        sub = sorted(ids)[::len(ids) // 8]
+        clip = ClipSpec(-1000.0, 1000.0)
+        cpu_stack, _ = prepare_patient_dataset(root / "raw", "claro_prospettivo", sub, 256,
+                                               boxes=boxes, clip=clip, scale=clip, device=cpu)
+        pos = [sorted(ids).index(i) for i in sub]
+        claro_err = float(np.abs(stack[pos] - cpu_stack).max())
+        if claro_err > CLARO_TOL:
+            raise AssertionError(f"claro: card vs CPU {claro_err:.3e} > {CLARO_TOL}")
+        report["claro"].update(input_write_s=write_s, resize_card_vs_cpu_rel=worst,
+                               stack_card_vs_cpu=claro_err, slices=len(ids))
+
+        # 6. augment_batch on the stack, zoom and elastic on
+        cfg = AugmentConfig(zoom=True, elastic=True)
+        imgs = torch.as_tensor(stack)
+        draws = draw_augment(len(stack), 256, 256, cfg, torch.Generator().manual_seed(SEED),
+                             device=cpu)
+        dev_imgs = imgs.to(device)
+        dev_draws = type(draws)(*(d.to(device) for d in draws))
+        augment_batch(dev_imgs, cfg, dev_draws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug = augment_batch(dev_imgs, cfg, dev_draws)
+        torch.cuda.synchronize()
+        aug_s = time.perf_counter() - t0
+        aug_err = float((aug.cpu() - augment_batch(imgs, cfg, draws)).abs().max())
+        if aug_err > AUGMENT_TOL:
+            raise AssertionError(f"augment: card vs CPU {aug_err:.3e} > {AUGMENT_TOL}")
+        report["augment"] = {"shape": list(aug.shape), "warm_s": aug_s,
+                             "card_vs_cpu": aug_err}
+
+    for label, launches in out.items():
+        if launches != none:
+            raise AssertionError(f"{label}: launches {launches}; no port kernel is on this "
+                                 "stage's path")
+    log(f"analysis and claro stages ({card}): " + json.dumps(report))
+    log(f"analysis and claro phase: {time.perf_counter() - t_phase:.6f} s ({card})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1933,15 +2367,19 @@ def main() -> int:
     log(f"evals/s warm: fp32 {evals / s32:.0f}, bf16 {evals / s16:.0f} ({card})")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pso_") as keep:
         pso_interim, upstream = Path(keep) / "batched", Path(keep) / "assessor"
+        dim2_interim, ood_interim = Path(keep) / "dim2", Path(keep) / "ood"
         pipeline_launches = pipeline_phase(models, device, KERNELS, card,
-                                           keep_interim=pso_interim)
-        pipeline_launches.update(inverter_phase(models, device, KERNELS, card))
+                                           keep_interim=pso_interim, keep_dim2=dim2_interim)
+        pipeline_launches.update(inverter_phase(models, device, KERNELS, card,
+                                                keep_interim=ood_interim))
         pipeline_launches.update(inverter_training_phase(models, device, KERNELS, card,
                                                          pso_interim))
         pipeline_launches.update(assessor_eval_phase(models, device, KERNELS, card,
                                                      keep_upstream=upstream))
         pipeline_launches.update(gan_vqvae_phase(models, device, KERNELS, card, upstream,
                                                  pso_interim))
+        pipeline_launches.update(analysis_claro_phase(device, KERNELS, card, pso_interim,
+                                                      dim2_interim, ood_interim))
     prof = profile_main_path(models, device, KERNELS)
     log("profile fp32 main path: " + json.dumps(prof))
     log("profile bf16 main path: "

@@ -14,7 +14,10 @@ neither it nor JAX. Module paths mirror the JAX package's:
 - `models/`: the DCGAN generator and discriminator, the plain and AttGAN
   encoders and the ResNet assessors as `nn.Module`s;
 - `data/`: MNIST idx files or the synthetic digits, as tensors on the
-  stage's device;
+  stage's device; the CLARO CT chain (`medical.py`: box crop, resize on
+  the device, clip, normalise), TIFF and xlsx read and written without
+  PIL or openpyxl (`tiff.py`, `xlsx.py`), and the batched augmentation
+  (`augment.py`);
 - `train/`: the optimizers, the GAN losses, the assessor's training loop,
   and the inverter's training steps and gradient inversions;
 - `pso/`: discovery and hybrid-inversion fitness, swarm, the batched
@@ -22,10 +25,11 @@ neither it nor JAX. Module paths mirror the JAX package's:
   artifacts (`io.py`);
 - `compat/weights.py`: JAX parameter trees and reference checkpoints into
   the port's state dicts, and back;
-- `pipelines/`, `analysis/reporting.py`, `cli/`: the `pso-discovery`,
-  `pso-inverter`, `iid-extract`, `ood-extract`, `inverter`,
-  `regularize-inverter` and `regularize-inverter-statistics` stages, their
-  report writers and their command line
+- `analysis/`: PCA, k-means and the Gaussian mixture in torch after
+  scikit-learn's rules (`cluster.py`), UMAP (`umap_impl.py`), the
+  latent analyses (`latent.py`) and the report writers (`reporting.py`);
+- `pipelines/`, `cli/`: every stage of the JAX package but `sweep` and the
+  export and conversion commands, and their command line
   (`python -m gan_discovery_pso_tpu_torch.cli <stage>`).
 """
 

@@ -12,8 +12,12 @@ scatters, the 2-D fitness landscape, GIFs and image grids (counterpart of
 (`denoise_panel` :256, `plot_latent_space` :560, `plot_img_latent_space`
 :581, `plot_battery_tree` :606, `error_reject_curve` :966), of the DCGAN
 (`plot_gan_training` :176, `plot_posterior_histograms` :291,
-`plot_posterior_polarization` :778) and of the VQ-VAE
-(`plot_vqvae_losses` :215).
+`plot_posterior_polarization` :778), of the VQ-VAE (`plot_vqvae_losses`
+:215) and of the latent analyses (`plot_sorted_distance_curves` :329,
+`plot_distance_kde` :344, `plot_ellipsoids` :366, `plot_pca_variance`
+:403, `image_grid` :451, `plot_scatter_2d` :538, `plot_voronoi` :737,
+`plot_distance_histogram` :764, `CvEvaluator` :795, with sklearn's
+`roc_curve`, `auc`, `roc_auc_score` and confusion counts in numpy).
 
 matplotlib and PIL are imported inside the writers, so the package imports
 on a host that lacks them; the stage asks `host_has` before it calls a
@@ -637,3 +641,367 @@ def error_reject_curve(y_true, y_score, out_path=None, label=None):
         _savefig(fig, out_path, 200)
         plt.close(fig)
     return p_rej, p_err
+
+
+# -- the latent analyses -----------------------------------------------------
+
+
+def image_grid(images, out_path, ncols: int = 8, drange=(0, 1)):
+    """A superimage grid through matplotlib (reference util_report_gan.py:
+    50-87). images: [N, C, H, W]."""
+    plt = _plt()
+    n = np.asarray(images).shape[0]
+    canvas = grid_canvas(images, ncols=ncols, drange=drange, padding=0)
+    c = canvas.shape[0]
+    hwc = canvas.transpose(1, 2, 0)
+    cols = min(ncols, n)
+    fig, ax = plt.subplots(figsize=(cols, -(-n // cols)))
+    ax.imshow(hwc.squeeze(-1) if c == 1 else hwc, cmap="gray" if c == 1 else None)
+    ax.axis("off")
+    _savefig(fig, out_path, 150, bbox_inches="tight")
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_scatter_2d(points, labels, out_path, title="", centers=None, extra=None):
+    """A labelled 2-D latent scatter (the PCA, UMAP and cluster plots)."""
+    plt = _plt()
+    points, labels = np.asarray(points), np.asarray(labels)
+    fig, ax = plt.subplots()
+    for lab in np.unique(labels):
+        m = labels == lab
+        ax.scatter(points[m, 0], points[m, 1], s=6, alpha=0.6, label=str(lab))
+    if centers is not None:
+        centers = np.asarray(centers)
+        ax.scatter(centers[:, 0], centers[:, 1], marker="x", c="black", s=80)
+    if extra is not None:
+        extra = np.asarray(extra)
+        ax.scatter(extra[:, 0], extra[:, 1], marker="^", c="red", s=30, label="ood")
+    ax.legend(fontsize=7, markerscale=2)
+    ax.set_title(title)
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_pca_variance(explained_variance, out_path):
+    """The cumulative explained-variance curve (reference pca_fun,
+    util_latent_analysis.py:21-28), summed up to but excluding i, so the
+    curve starts at 0 as the reference's does."""
+    plt = _plt()
+    ev = np.asarray(explained_variance, np.float64)
+    frac = np.array([ev[:i].sum() for i in range(len(ev))]) / ev.sum()
+    fig, ax = plt.subplots(figsize=(8, 6))
+    ax.plot(frac, linestyle="-", linewidth=2.0)
+    ax.set_xlabel("PCA component")
+    ax.set_ylabel("Explained variance")
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_ellipsoids(points, assignments, means, covariances, out_path,
+                    dim_red_algorithm=None):
+    """Gaussian-mixture component ellipses over the clustered points
+    (reference plot_ellipsoids, util_latent_analysis.py:202-243): a
+    2√2·√eigval ellipse along the leading eigenvector per component."""
+    import matplotlib as mpl
+
+    plt = _plt()
+    pts, asg = np.asarray(points), np.asarray(assignments)
+    colors = ["navy", "c", "cornflowerblue", "gold", "darkorange", "darkviolet",
+              "forestgreen", "salmon", "lightcoral", "deepskyblue"]
+    fig, ax = plt.subplots(figsize=(8, 6))
+    for i, (mean, covar) in enumerate(zip(np.asarray(means), np.asarray(covariances))):
+        color = colors[i % len(colors)]
+        if not np.any(asg == i):
+            continue
+        v, w = np.linalg.eigh(covar)
+        v = 2.0 * np.sqrt(2.0) * np.sqrt(np.maximum(v, 0.0))
+        u = w[0] / np.linalg.norm(w[0])
+        ax.scatter(pts[asg == i, 0], pts[asg == i, 1], s=0.8, color=color)
+        angle = 180.0 * np.arctan(u[1] / u[0]) / np.pi
+        ell = mpl.patches.Ellipse(mean[:2], v[0], v[1], angle=180.0 + angle, color=color)
+        ell.set_clip_box(ax.bbox)
+        ell.set_alpha(0.5)
+        ax.add_artist(ell)
+    tag = dim_red_algorithm or ""
+    ax.set_title(f"{tag} Gaussian Mixture".strip() if tag else "Latent Space")
+    ax.set_xlabel(f"{tag}_1" if tag else "Z_1")
+    ax.set_ylabel(f"{tag}_2" if tag else "Z_2")
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_voronoi(points, out_path, labels=None, title="Voronoi"):
+    """A Voronoi diagram with its infinite regions closed (reference
+    util_latent_analysis.py:66-166)."""
+    from gan_discovery_pso_tpu_torch.analysis.latent import voronoi_finite_polygons
+
+    plt = _plt()
+    points = np.asarray(points)
+    regions, vertices = voronoi_finite_polygons(points)
+    fig, ax = plt.subplots()
+    for region in regions:
+        ax.fill(*zip(*vertices[region]), alpha=0.3)
+    if labels is not None:
+        for lab in np.unique(labels):
+            m = np.asarray(labels) == lab
+            ax.scatter(points[m, 0], points[m, 1], s=10, label=str(lab))
+        ax.legend(fontsize=7)
+    else:
+        ax.scatter(points[:, 0], points[:, 1], s=10, c="black")
+    pad = 0.5
+    ax.set_xlim(points[:, 0].min() - pad, points[:, 0].max() + pad)
+    ax.set_ylim(points[:, 1].min() - pad, points[:, 1].max() + pad)
+    ax.set_title(title)
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_distance_histogram(distances, out_path, title="pairwise distances", bins: int = 50):
+    """A distance histogram (reference src/training/pso_analysis_distance.py:169-228)."""
+    plt = _plt()
+    fig, ax = plt.subplots()
+    ax.hist(np.asarray(distances), bins=bins, color="steelblue", alpha=0.8)
+    ax.set_xlabel("euclidean distance")
+    ax.set_ylabel("count")
+    ax.set_title(title)
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_sorted_distance_curves(series: dict, out_path):
+    """Sorted distance curves, one per entry (reference
+    pso_analysis_distance.py:169-228 fig1 → paiwise_mse.png, the reference's
+    spelling)."""
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(8, 6))
+    for name, values in series.items():
+        ax.plot(np.sort(np.asarray(values).ravel()), label=str(name))
+    ax.set_xlabel("pair index")
+    ax.set_ylabel("mse value")
+    ax.legend()
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def plot_distance_kde(series: dict, out_path):
+    """The distance distributions as histograms with scipy's gaussian_kde
+    (reference fig2 → latent_kde_distribution.png, drawn there with
+    seaborn)."""
+    from scipy.stats import gaussian_kde
+
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(8, 6))
+    for name, values in series.items():
+        v = np.asarray(values, np.float64).ravel()
+        ax.hist(v, bins=30, density=True, alpha=0.3)
+        if len(v) > 1 and v.std() > 0:
+            xs = np.linspace(v.min(), v.max(), 200)
+            ax.plot(xs, gaussian_kde(v)(xs), label=str(name))
+    ax.set_xlabel("mse value")
+    ax.set_ylabel("counts")
+    if ax.get_legend_handles_labels()[1]:
+        ax.legend()
+    _savefig(fig, out_path, 200)
+    plt.close(fig)
+    return Path(out_path)
+
+
+def roc_curve(y_true, y_score):
+    """sklearn's `roc_curve(y_true, y_score)` with drop_intermediate=True:
+    (fpr, tpr, thresholds); the scores sorted stably in descending order,
+    one point per distinct score, collinear points dropped, (0, 0) first.
+    A class absent from y_true gives NaN rates, as in sklearn."""
+    y = np.asarray(y_true).ravel() == 1
+    s = np.asarray(y_score).ravel()
+    order = np.argsort(-s, kind="stable")
+    s, y = s[order], y[order].astype(np.float64)
+    thr = np.r_[np.nonzero(np.diff(s))[0], len(y) - 1]
+    tps = np.cumsum(y)[thr]
+    fps = 1 + thr.astype(np.float64) - tps
+    thresholds = s[thr].astype(np.float64)
+    if len(fps) > 2:
+        keep = np.nonzero(np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True])[0]
+        fps, tps, thresholds = fps[keep], tps[keep], thresholds[keep]
+    tps, fps = np.r_[0.0, tps], np.r_[0.0, fps]
+    thresholds = np.r_[np.inf, thresholds]
+    fpr = fps / fps[-1] if fps[-1] > 0 else np.full(fps.shape, np.nan)
+    tpr = tps / tps[-1] if tps[-1] > 0 else np.full(tps.shape, np.nan)
+    return fpr, tpr, thresholds
+
+
+def auc(x, y) -> float:
+    """The trapezoidal area under (x, y), x monotonic (sklearn's `auc`)."""
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    dx = np.diff(x)
+    direction = -1 if np.any(dx < 0) and np.all(dx <= 0) else 1
+    if np.any(dx < 0) and direction == 1:
+        raise ValueError(f"x is neither increasing nor decreasing : {x}.")
+    return float(direction * np.trapezoid(y, x))
+
+
+def roc_auc_score(y_true, y_score) -> float:
+    """sklearn's binary `roc_auc_score`: NaN where y_true holds one class."""
+    if len(np.unique(np.asarray(y_true))) != 2:
+        return float("nan")
+    fpr, tpr, _ = roc_curve(y_true, y_score)
+    return auc(fpr, tpr)
+
+
+def confusion_counts(y_true, y_pred) -> tuple[int, int, int, int]:
+    """(tn, fp, fn, tp) of binary labels (sklearn's `confusion_matrix(...,
+    labels=[0, 1]).ravel()`)."""
+    y, p = np.asarray(y_true).ravel(), np.asarray(y_pred).ravel()
+    return (int(((y == 0) & (p == 0)).sum()), int(((y == 0) & (p == 1)).sum()),
+            int(((y == 1) & (p == 0)).sum()), int(((y == 1) & (p == 1)).sum()))
+
+
+class CvEvaluator:
+    """ROC and metric aggregation across CV folds (the reference's `Eval`
+    class, util_report.py:303-466): per-fold scores and labels, the mean ROC
+    with its std band, the summary metrics. sklearn's metrics are computed
+    here in numpy (`roc_curve`, `auc`, `roc_auc_score`, `confusion_counts`),
+    since the card's host has no sklearn."""
+
+    # the reference's per-fold metrics (compute_metrics, util_report.py:303-323,
+    # selected_keys :327) and the ratios its MEAN/STD rows aggregate (:413-422)
+    METRIC_KEYS = ("accuracy", "precision", "recall", "f1", "auc", "specificity", "g",
+                   "tn", "tp", "fp", "fn", "total_neg", "total_pos")
+    RATIO_KEYS = ("accuracy", "precision", "recall", "f1", "auc", "specificity", "g")
+
+    def __init__(self):
+        self.fold_scores: list[np.ndarray] = []
+        self.fold_labels: list[np.ndarray] = []
+
+    def add_fold(self, y_true, y_score):
+        self.fold_labels.append(np.asarray(y_true))
+        self.fold_scores.append(np.asarray(y_score))
+
+    def summary(self) -> dict:
+        """Mean and std of the AUC over folds with both classes, the mean
+        accuracy and binary F1 (0 where undefined) at threshold 0.5."""
+        aucs, accs, f1s = [], [], []
+        for y, s in zip(self.fold_labels, self.fold_scores):
+            if len(np.unique(y)) > 1:
+                aucs.append(roc_auc_score(y, s))
+            preds = (s >= 0.5).astype(int)
+            accs.append(float(np.mean(np.asarray(y) == preds)))
+            _tn, fp, fn, tp = confusion_counts(y, preds)
+            f1s.append(2 * tp / (2 * tp + fp + fn) if (2 * tp + fp + fn) else 0.0)
+        return {
+            "auc_mean": float(np.mean(aucs)) if aucs else float("nan"),
+            "auc_std": float(np.std(aucs)) if aucs else float("nan"),
+            "acc_mean": float(np.mean(accs)), "f1_mean": float(np.mean(f1s)),
+        }
+
+    def fold_metrics(self) -> list[dict]:
+        """One reference score dict per fold; undefined ratios are NaN."""
+        rows = []
+        for y, s in zip(self.fold_labels, self.fold_scores):
+            tn, fp, fn, tp = confusion_counts(y, (np.asarray(s) >= 0.5).astype(int))
+            rec = tp / (tp + fn) if (tp + fn) else float("nan")
+            prec = tp / (tp + fp) if (tp + fp) else float("nan")
+            spec = tn / (tn + fp) if (tn + fp) else float("nan")
+            f1 = (2 * rec * prec / (rec + prec)) if (rec + prec) else float("nan")
+            rows.append({
+                "accuracy": (tp + tn) / max(tp + tn + fp + fn, 1),
+                "precision": prec, "recall": rec, "f1": f1, "auc": roc_auc_score(y, s),
+                "specificity": spec, "g": math.sqrt(max(rec * spec, 0.0)),
+                "tn": tn, "tp": tp, "fp": fp, "fn": fn,
+                "total_neg": tn + fp, "total_pos": tp + fn,
+            })
+        return rows
+
+    def write_results_xlsx(self, path, group: str = "slices"):
+        """results.xlsx: one row per fold, then MEAN and STD rows over the
+        ratio keys (reference write_to_excel, util_report.py:275-289,
+        385, 420-422; NaN folds propagate as in its np.mean), through the
+        port's `data/xlsx.py`."""
+        from gan_discovery_pso_tpu_torch.data.xlsx import write_xlsx
+
+        rows = self.fold_metrics()
+        cols: dict = {"fold": [*range(len(rows)), "MEAN", "STD"],
+                      "group": [group] * (len(rows) + 2)}
+        for k in self.METRIC_KEYS:
+            vals = [float(r[k]) for r in rows]
+            if k in self.RATIO_KEYS:
+                cols[k] = vals + [float(np.mean(vals)) if vals else float("nan"),
+                                  float(np.std(vals)) if vals else float("nan")]
+            else:
+                cols[k] = vals + [None, None]
+        return write_xlsx(path, cols)
+
+    def plot_mean_roc(self, out_path, group: str = "slices"):
+        """The cross-fold mean ROC with std error bars (reference
+        `mean_plot_roc`, util_report.py:440-466) → `mean_roc_{group}.png`;
+        None where no fold holds both classes."""
+        x = np.linspace(0, 1, 100)
+        tprs, fprs, aucs = [], [], []
+        for y, s in zip(self.fold_labels, self.fold_scores):
+            if len(np.unique(y)) < 2:
+                continue
+            fpr, tpr, _ = roc_curve(y, s)
+            t, f = np.interp(x, fpr, tpr), np.interp(x, tpr, fpr)
+            t[0] = f[0] = 0.0
+            tprs.append(t)
+            fprs.append(f)
+            aucs.append(auc(fpr, tpr))
+        if not tprs:
+            return None
+        plt = _plt()
+        mean_tpr = np.mean(tprs, axis=0)
+        mean_tpr[-1] = 1.0
+        fig, ax = plt.subplots()
+        ax.plot([0, 1], [0, 1], linestyle="--", lw=2, color="gray", alpha=0.8)
+        ax.errorbar(x, mean_tpr, yerr=np.std(tprs, axis=0), marker="s", capsize=5,
+                    capthick=2, elinewidth=2, ecolor="gray", fmt="-o", color="b",
+                    label=r"ROC media (AUC = %0.2f $\pm$ %0.2f)"
+                          % (auc(x, mean_tpr), np.std(aucs)), lw=2, alpha=0.8)
+        ax.errorbar(x, mean_tpr, xerr=np.std(fprs, axis=0), marker="s", elinewidth=0.8,
+                    ecolor="gray", fmt="-o", color="b", lw=2, alpha=0.8)
+        ax.set_xlim([-0.05, 1.05])
+        ax.set_ylim([-0.05, 1.05])
+        ax.set_title(f"{group} mean roc curve", fontsize=14)
+        ax.set_xlabel("FP Rate", fontsize=14)
+        ax.set_ylabel("TP Rate", fontsize=14)
+        ax.legend(loc="lower right", fontsize=12)
+        _savefig(fig, out_path, 200)
+        plt.close(fig)
+        return Path(out_path)
+
+    def save_overall_scores(self, out_path):
+        """`overall_scores.pkl` (reference on_experiments_end,
+        util_report.py:409-411): [slices_scores, patients_scores]; this
+        evaluator tracks one group, so the second is empty."""
+        import pickle
+
+        with open(out_path, "wb") as f:
+            pickle.dump([self.fold_metrics(), []], f)
+        return Path(out_path)
+
+    def plot_roc(self, out_path, title="ROC (CV)"):
+        plt = _plt()
+        mean_fpr = np.linspace(0, 1, 100)
+        tprs = []
+        fig, ax = plt.subplots()
+        for i, (y, s) in enumerate(zip(self.fold_labels, self.fold_scores)):
+            fpr, tpr, _ = roc_curve(y, s)
+            ax.plot(fpr, tpr, alpha=0.3, lw=1, label=f"fold {i}")
+            tprs.append(np.interp(mean_fpr, fpr, tpr))
+        mean_tpr, std_tpr = np.mean(tprs, axis=0), np.std(tprs, axis=0)
+        ax.plot(mean_fpr, mean_tpr, "b-", lw=2, label="mean")
+        ax.fill_between(mean_fpr, mean_tpr - std_tpr, mean_tpr + std_tpr, alpha=0.2)
+        ax.plot([0, 1], [0, 1], "k--", lw=1)
+        ax.set_xlabel("FPR")
+        ax.set_ylabel("TPR")
+        ax.legend(fontsize=7)
+        ax.set_title(title)
+        _savefig(fig, out_path, 200)
+        plt.close(fig)
+        return Path(out_path)

@@ -3,8 +3,10 @@
 `_ctx`, `_epochs` :33-90, `_load_gan`/`_load_cnn` :271-290, and the
 `cae`, `classifiers`, `dcgan`, `cnn`, `cnn-multipatient`, `pso-discovery`,
 `inverter`, `iid-extract`/`ood-extract`, `pso-inverter`,
-`regularize-inverter`, `regularize-inverter-statistics`, `vqvae` and
-`pixelcnn-prior` branches :351-425):
+`regularize-inverter`, `regularize-inverter-statistics`, `vqvae`,
+`pixelcnn-prior`, `pso-analysis`, `pso-analysis-clustering`,
+`pso-analysis-distance`, `pso-inverter-analysis` and `claro-preprocess`
+branches :351-448):
 
     python -m gan_discovery_pso_tpu_torch.cli cae [--epochs E] ...
     python -m gan_discovery_pso_tpu_torch.cli classifiers --path-cae DIR ...
@@ -30,6 +32,14 @@
         --path-gan DIR --path-pso DIR [--epochs E] ...
     python -m gan_discovery_pso_tpu_torch.cli pixelcnn-prior --cfg configs/vqvae.yaml \\
         --path-vqvae DIR [--epochs E] ...
+    python -m gan_discovery_pso_tpu_torch.cli pso-analysis|pso-analysis-distance \\
+        --path-pso DIR ...
+    python -m gan_discovery_pso_tpu_torch.cli pso-analysis-clustering --path-pso DIR \\
+        [--path-ood-pso DIR ...] ...
+    python -m gan_discovery_pso_tpu_torch.cli pso-inverter-analysis --path-pso DIR \\
+        --path-ood-pso DIR [--ood-patient P] ...
+    python -m gan_discovery_pso_tpu_torch.cli claro-preprocess \\
+        --cfg configs/claro_preprocess.yaml [--limit N] ...
 
 `--path-cae`, `--path-classifiers`, `--path-gan`, `--path-cnn`,
 `--path-inverter` and `--path-vqvae` are the models dirs of either
@@ -45,7 +55,13 @@ classifiers and the two regularize stages refuse it (exit 2, ROADMAP A18),
 and so does `dcgan` under `trainer_gan.compute_dtype`. `--path-cnn` is read by
 `inverter` only for `trainer_inverter.training_function=pix_fea_rec_adv`;
 `--path-pso` is the interim dir of a pso-discovery run (the vqvae's
-codebook). The regularize
+codebook, the analyses' particles); `--path-ood-pso` (repeatable) the
+interim dir of a pso-inverter run per inverted patient, whose OoD latents
+the clustering overlays (labelled by `data.ood_classes`) and
+pso-inverter-analysis assigns (`--ood-patient`, else
+`pso_inverter.ood_patient`). `claro-preprocess` reads its manifests from
+the config (`--tiny` caps it at 512 slices, like --limit). These five run
+no model, so `--fast-math` changes nothing there. The regularize
 stages invert the first 8 OoD test images, 500 iterations (50 with
 `--tiny`). `--limit N` caps every dataset load at N images; `--tiny` caps
 at 512 unless --limit says otherwise, and gives 1 training epoch unless
@@ -62,12 +78,10 @@ import torch
 
 # stages of the JAX package's CLI that the port does not run yet, with the
 # ROADMAP item of each
-NOT_PORTED = {
-    "pso-analysis": "A15", "pso-analysis-clustering": "A15",
-    "pso-analysis-distance": "A15", "pso-inverter-analysis": "A15",
-    "claro-preprocess": "A14", "sweep": "A17", "export-model": "A17",
-    "convert-torch": "A17", "export-torch": "A17",
-}
+NOT_PORTED = {"sweep": "A17", "export-model": "A17", "convert-torch": "A17",
+              "export-torch": "A17"}
+ANALYSIS_STAGES = ("pso-analysis", "pso-analysis-clustering", "pso-analysis-distance",
+                   "pso-inverter-analysis")
 INVERSION_STAGES = ("regularize-inverter", "regularize-inverter-statistics")
 # stages that build a model from the data alone (no upstream checkpoint but
 # the classifiers' --path-cae)
@@ -213,6 +227,17 @@ def _parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("--path-vqvae", default=None, help="vqvae stage model dir")
     p.add_argument("--epochs", type=int, default=None, help="training epochs (default: 10)")
+    for name in ANALYSIS_STAGES:
+        p = sub.add_parser(name)
+        _add_common(p)
+        p.add_argument("--path-pso", default=None, help="pso-discovery stage interim dir")
+        if name in ("pso-analysis-clustering", "pso-inverter-analysis"):
+            p.add_argument("--path-ood-pso", action="append", default=None,
+                           help="pso-inverter stage interim dir; repeatable, one per "
+                                "inverted patient")
+        if name == "pso-inverter-analysis":
+            p.add_argument("--ood-patient", type=int, default=None)
+    _add_common(sub.add_parser("claro-preprocess"))
     return parser
 
 
@@ -313,6 +338,25 @@ def main(argv=None):
             # superimages (iid_extractor.py:163-199); optional here
             gen = _load_gan(args, ctx) if args.path_gan else None
             P.run_extractor(ctx, enc, kind=stage.split("-")[0], gen=gen)
+        elif stage in ANALYSIS_STAGES:
+            pso = _require(args.path_pso, "--path-pso", "interim dir of a pso-discovery run")
+            if stage == "pso-analysis":
+                P.run_pso_analysis(ctx, pso)
+            elif stage == "pso-analysis-distance":
+                P.run_pso_analysis_distance(ctx, pso)
+            elif stage == "pso-analysis-clustering":
+                P.run_pso_analysis_clustering(
+                    ctx, pso, ood_interim_dir=args.path_ood_pso,
+                    ood_labels=tuple(ctx.data_cfg.ood_classes) if args.path_ood_pso else None)
+            else:
+                ood = _require(args.path_ood_pso, "--path-ood-pso",
+                               "interim dir of a pso-inverter run")
+                patient = args.ood_patient
+                if patient is None:
+                    patient = int(ctx.cfg.pso_inverter.ood_patient)
+                P.run_pso_inverter_analysis(ctx, pso, list(ood), patient)
+        elif stage == "claro-preprocess":
+            P.run_claro_preprocess(ctx, limit=ctx.limit)
         else:
             gen = _load_gan(args, ctx)
             enc = P.load_encoder(_require(args.path_inverter, "--path-inverter",

@@ -42,6 +42,8 @@ reference's (JAX `compat/torch_export.py:89-110`).
 
 `load_reference_checkpoint` reads the reference's `.tar`
 (`{'epoch', 'model_state_dict', 'loss'}`) and bare `.pt` state dicts.
+`cluster_model_from_sklearn` turns a fitted sklearn `KMeans` or
+`GaussianMixture` (a JAX run's `{algorithm}.pkl`) into the port's model.
 """
 
 from __future__ import annotations
@@ -512,3 +514,29 @@ def load_reference_checkpoint(path: str | Path, map_location="cpu") -> dict:
     if isinstance(obj, dict) and "model_state_dict" in obj:
         return obj["model_state_dict"]
     return obj
+
+
+def cluster_model_from_sklearn(model, device=None):
+    """A fitted sklearn `KMeans` (its `cluster_centers_`) or full-covariance
+    `GaussianMixture` (`weights_`, `means_`, `covariances_`,
+    `precisions_cholesky_`) → the port's `analysis.cluster` model, whose
+    `predict` gives sklearn's labels. Read by attribute: sklearn need not
+    be installed where the port runs."""
+    from gan_discovery_pso_tpu_torch.analysis.cluster import GaussianMixture, KMeans
+
+    if hasattr(model, "cluster_centers_"):
+        out = KMeans(len(model.cluster_centers_), device=device)
+        out.cluster_centers_ = np.asarray(model.cluster_centers_, np.float64)
+        for name in ("labels_", "inertia_", "n_iter_"):
+            setattr(out, name, getattr(model, name, None))
+        return out
+    if getattr(model, "covariance_type", "full") != "full" or not hasattr(
+            model, "precisions_cholesky_"):
+        raise ValueError(f"{type(model).__name__}: a fitted KMeans or full-covariance "
+                         "GaussianMixture is needed")
+    out = GaussianMixture(len(model.weights_), device=device)
+    for name in ("weights_", "means_", "covariances_", "precisions_cholesky_"):
+        setattr(out, name, np.asarray(getattr(model, name), np.float64))
+    for name in ("converged_", "n_iter_", "lower_bound_"):
+        setattr(out, name, getattr(model, name, None))
+    return out

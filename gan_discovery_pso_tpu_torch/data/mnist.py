@@ -16,8 +16,10 @@ Sources, in order:
    (seconds for the 16000-image train split), so each (n, seed) is
    rendered once per process.
 
-Only the native 28x28 size loads: the JAX package resizes other sizes with
-`jax.image.resize`, which torch does not reproduce bit for bit.
+Another `image_size` is resized on `device` by `ops/resize.py` (bilinear,
+antialiased when shrinking), where the JAX package calls
+`jax.image.resize(..., "bilinear")`: not bit for bit, but within 2e-6 of
+the images' range (tests/test_torch_port_claro.py).
 """
 
 from __future__ import annotations
@@ -31,8 +33,10 @@ from typing import Iterator, NamedTuple
 import numpy as np
 import torch
 
+from gan_discovery_pso_tpu_torch.core.device import resolve_device
 from gan_discovery_pso_tpu_torch.data.synthetic_digits import synth_digits
 from gan_discovery_pso_tpu_torch.ops.rescale import adjust_dynamic_range
+from gan_discovery_pso_tpu_torch.ops.resize import resize_bilinear
 
 
 class ImageDataset(NamedTuple):
@@ -82,8 +86,10 @@ def load_mnist(
     image_size: int = 28,
     device=None,
 ) -> ImageDataset:
-    """Load (or synthesize) MNIST, filter to `classes`, map to `drange`, and
-    put it on `device` (the CPU when None)."""
+    """Load (or synthesize) MNIST, filter to `classes`, resize to
+    `image_size`, map to `drange`, and put it on `device` (the card when
+    None); the resize runs there."""
+    device = resolve_device(device)
     data_dir = Path(data_dir)
     img_stem, lab_stem = _FILES[split]
     img_path, lab_path = _find_idx(data_dir, img_stem), _find_idx(data_dir, lab_stem)
@@ -102,10 +108,8 @@ def load_mnist(
         images, labels = images[mask], labels[mask]
 
     if image_size != images.shape[-1]:
-        raise NotImplementedError(
-            f"image_size={image_size} needs a resize of the {images.shape[-1]}-pixel "
-            "images, which is not ported yet (ROADMAP A14): the JAX package resizes "
-            "with jax.image.resize, which torch does not reproduce bit for bit")
+        images = resize_bilinear(torch.as_tensor(images, device=device),
+                                 image_size).cpu().numpy()
 
     images = adjust_dynamic_range(images, (0, 1), drange)
     # torch.tensor copies: the synthetic arrays are shared across loads

@@ -325,9 +325,8 @@ def test_last_iteration_of_a_zero_row_history_matches_jax():
     assert last_iteration(PsoHistory(*hist(2))) == [jax_last_iteration(empty)] * 2
 
 
-@pytest.mark.parametrize("stage,item", [("pso-analysis-clustering", "A15"),
-                                        ("claro-preprocess", "A14"), ("export-model", "A17"),
-                                        ("pso-analysis", "A15"), ("sweep", "A17")])
+@pytest.mark.parametrize("stage,item", [("convert-torch", "A17"), ("export-torch", "A17"),
+                                        ("export-model", "A17"), ("sweep", "A17")])
 def test_cli_refuses_unported_stages(stage, item, capsys):
     assert cli_main([stage, "--cfg", CFG]) != 0
     err = capsys.readouterr().err

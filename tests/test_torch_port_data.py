@@ -62,7 +62,7 @@ def test_synth_digits_is_bit_equal_to_jax():
 def test_load_mnist_matches_jax_on_idx_files(tmp_path, gz, drange, classes):
     """Within 1 ulp: both map [0, 1] → drange with fp32 scale and bias."""
     write_idx(tmp_path, gz=gz)
-    got = load_mnist(tmp_path, "train", classes=classes, drange=drange)
+    got = load_mnist(tmp_path, "train", classes=classes, drange=drange, device="cpu")
     want = jax_load_mnist(tmp_path, "train", classes=classes, drange=drange)
     assert got.source == want.source == "mnist-idx" and got.drange == want.drange
     assert got.images.dtype == torch.float32 and got.labels.dtype == torch.int32
@@ -75,21 +75,40 @@ def test_load_mnist_matches_jax_on_idx_files(tmp_path, gz, drange, classes):
 
 
 def test_synthetic_fallback_matches_jax(tmp_path):
-    got = load_mnist(tmp_path, "test", classes=(1,), drange=(-1, 1))
+    got = load_mnist(tmp_path, "test", classes=(1,), drange=(-1, 1), device="cpu")
     want = jax_load_mnist(tmp_path, "test", classes=(1,), drange=(-1, 1))
     assert got.source == want.source == "synthetic"
     np.testing.assert_array_max_ulp(got.images.numpy(), np.asarray(want.images), maxulp=1)
     np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
     # the rendered arrays are shared across loads; a loaded tensor is a copy
     got.images.fill_(9.0)
-    again = load_mnist(tmp_path, "test", classes=(1,), drange=(-1, 1))
+    again = load_mnist(tmp_path, "test", classes=(1,), drange=(-1, 1), device="cpu")
     assert float(again.images.max()) <= 1.0
 
 
 def test_non_native_image_size_raises_naming_a14(tmp_path):
+    """A non-native image_size used to raise naming ROADMAP A14; A14 ported
+    the resize (`ops/resize.py`), so it now loads, within 2e-6 of the
+    range of JAX's `jax.image.resize(..., "bilinear")`, up and down."""
     write_idx(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        load_mnist(tmp_path, "train", image_size=32)
+    for size in (64, 32, 20):
+        got = load_mnist(tmp_path, "train", image_size=size, device="cpu")
+        want = jax_load_mnist(tmp_path, "train", image_size=size)
+        assert tuple(got.images.shape) == tuple(want.images.shape) == (N_IMAGES, 1, size, size)
+        np.testing.assert_allclose(got.images.numpy(), np.asarray(want.images), rtol=0,
+                                   atol=2e-6 * 2)  # drange (-1, 1): a range of 2
+
+
+@pytest.mark.parametrize("image_size", [28, 64], ids=["native", "resized"])
+def test_load_mnist_without_device_raises_on_a_host_without_cuda(tmp_path, monkeypatch,
+                                                                 image_size):
+    """The images land on the card, and a resize runs there, unless the
+    caller names a device; a host without CUDA raises rather than quietly
+    keeping them on the CPU."""
+    write_idx(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_mnist(tmp_path, "train", image_size=image_size)
 
 
 @pytest.mark.parametrize("drange_in,drange_out", [((0, 1), (-1, 1)), ((0, 1), (0, 1)),
@@ -107,7 +126,7 @@ def test_adjust_dynamic_range_matches_jax(drange_in, drange_out):
 def test_train_val_split_matches_jax(tmp_path, fraction):
     """The last `fraction` of the images, unshuffled."""
     write_idx(tmp_path)
-    tr, va = train_val_split(load_mnist(tmp_path, "train"), fraction)
+    tr, va = train_val_split(load_mnist(tmp_path, "train", device="cpu"), fraction)
     jtr, jva = jax_train_val_split(jax_load_mnist(tmp_path, "train"), fraction)
     for got, want in ((tr, jtr), (va, jva)):
         np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
