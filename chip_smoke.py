@@ -58,9 +58,19 @@ inverter phase's 256 OoD latents overlaid, and on the dimension-2 run;
 64 CT slices of 512 x 512 at 256, a rerun byte-equal; `augment_batch` on
 the 128 slices; PCA, the labels, UMAP's graph and 10 layout epochs, the
 distances, the resize, the stack and the augmentation on the card against
-the CPU; no port kernel on these paths), then times
+the CPU; no port kernel on these paths), runs the parallel paths (the
+parallel phase, run last, after the timings below and every profiler
+session: `pso-discovery --shard-swarm 2`, whose two ranks the
+CLI starts on the one card over gloo, each class's swarm split 16 + 16 and
+moved by B1's split halves around the global-best all-reduces, within
+rtol 1e-4 of the sequential run; the batched sharded runner at world 1
+under NCCL, bit-equal to the batched runner; 4 ranks running the 2 x 2
+class x swarm runner against the batched runner and the data-parallel GAN
+step at the shipped widths against the one-process step; the split halves
+are held bit-equal to their plain versions, shard by shard and together
+against the fused plain version, before the main path runs), then times
 each kernel at the main path's shape and at a large one (device µs per
-launch from the profiler over the last 50 of 60 calls in a session, as
+launch from the profiler over the last 50 of 80 calls in a session, as
 the profiler loses the kernel events of a session's first calls; beside
 the bound), and prints:
 
@@ -99,8 +109,13 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32, outside the tensor cores
 TIMED_LAUNCHES = 200
 PROFILED_LAUNCHES = 50
-PROFILER_SESSIONS = 3  # tries at a session that keeps its timed launches
-PROFILER_LEAD_CALLS = 10  # calls a session makes before its timed ones
+PROFILER_SESSIONS = 5  # tries at a session that keeps its timed launches
+# calls a session makes before its timed ones: a session loses the kernel
+# events of its first 0-2 calls as a rule, and in some full runs of this
+# script lost those of its first 8-15 calls in every session (now and then
+# all of a session's calls: `device_us` then tries again)
+PROFILER_LEAD_CALLS = 30
+GRAPH_REPLAYS = 20  # replays of a graph of PROFILED_LAUNCHES calls, timed together
 L2_BYTES = 50 * 2**20  # H100 L2
 LANDSCAPE = 100  # points per axis of the stage's 2-D fitness mesh
 SEQ_TOL = 1e-4  # sequential vs batched g_best (tests/test_pipeline_e2e.py:511-514)
@@ -119,15 +134,31 @@ SWARM_TIMED = ((N_CLASSES, N_PARTICLES, DIM), (1, 4096, 1024), (1, INV_PARTICLES
 # rows in registers at every team size (8, 4, 2, 1 warps) and register
 # depth (1 to 32 float4 a thread), long rows (one CTA each; 65536 = a
 # 256x256 CLARO slice, 4099 odd), the 2-D landscape's 100x100 mesh, the
-# GAN evaluation sampler's chunk of 1280 images
+# GAN evaluation sampler's chunk of 1280 images, and one rank's images on
+# the parallel phase's sharded paths: a class's swarm over SHARDS ranks, and
+# a GRID rank's classes x particles
+SHARDS = 2  # ranks of the parallel phase's sharded swarm
+GRID = (2, 2)  # the class x swarm runner's mesh
 RESCALE_SHAPES = ((N_CLASSES * N_PARTICLES, 784), (9, 300), (5, 301), (4096, 784),
                   (600, 1500), (1500, 2049), (3000, 203), (2100, 4000),
-                  (4, 65536), (3, 4099), (LANDSCAPE ** 2, 784), (1280, 784))
+                  (4, 65536), (3, 4099), (LANDSCAPE ** 2, 784), (1280, 784),
+                  (N_PARTICLES // SHARDS, 784),
+                  ((N_CLASSES // GRID[0]) * (N_PARTICLES // GRID[1]), 784))
 RESCALE_TIMED = ((N_CLASSES * N_PARTICLES, 784), (4096, 784))
 N_SYNTHETIC = 12800  # images of one GAN evaluation (evaluate_gan_epoch's default)
 # device kernel names of each wrapper, as the profiler reports them
 KERNEL_NAMES = {"swarm_update": ("swarm_update_kernel",),
-                "rescale01_rows": ("rescale_short_kernel", "rescale_long_kernel")}
+                "rescale01_rows": ("rescale_short_kernel", "rescale_long_kernel"),
+                "swarm_pbest_local": ("swarm_pbest_local_kernel",),
+                "swarm_move": ("swarm_move_kernel",)}
+# the parallel phase: B1's split halves at the main path's swarm halved,
+# stacked, half of B1's large shape, odd rows and d, d past float4, and the
+# shipped dimension 2, each cut into SHARDS shards
+SPLIT_SHAPES = ((1, N_PARTICLES // 2, DIM), (N_CLASSES, N_PARTICLES // 2, DIM), (1, 2048, 1024),
+                (3, 13, 7), (2, 9, 1030), (N_CLASSES, N_PARTICLES, 2))
+SPLIT_TIMED = ((1, N_PARTICLES // 2, DIM), (N_CLASSES, N_PARTICLES // 2, DIM), (1, 2048, 1024))
+GRID_ITERATIONS = 10  # the class x swarm runner's depth (the main path runs 50);
+# the DP GAN step runs on each of its swarm-axis pairs
 
 
 def log(*a):
@@ -172,9 +203,9 @@ def bits_equal(a, b) -> float:
 
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"{tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
-    if a.dtype == torch.bool:
+    if not a.is_floating_point():
         if not torch.equal(a, b):
-            raise AssertionError("bool outputs differ")
+            raise AssertionError(f"{a.dtype} outputs differ")
         return 0.0
     nan_a, nan_b = torch.isnan(a), torch.isnan(b)
     if not torch.equal(nan_a, nan_b):
@@ -287,17 +318,45 @@ def leading_loss(record: dict) -> bool:
     return lost is not None and lost == list(range(len(lost)))
 
 
+def graph_us(fn, launches: int = PROFILED_LAUNCHES, replays: int = GRAPH_REPLAYS) -> float:
+    """Device µs per launch of `fn`'s kernel from a CUDA graph of `launches`
+    calls, replayed `replays` times between two CUDA events: the kernels'
+    time plus the graph's gaps between them, so at least the kernel's
+    device time. No profiler is involved."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / (replays * launches)
+
+
 def device_us(fn, kernel_names, launches: int = PROFILED_LAUNCHES,
-              sessions: int = PROFILER_SESSIONS) -> tuple[float, int, list]:
+              sessions: int = PROFILER_SESSIONS) -> tuple[float | None, int, list]:
     """(device µs per launch, launches measured, the session records) of
     `fn`'s kernel over `launches` standalone launches, from the profiler's
     device events. The profiler loses the kernel events of a session's
-    first calls (0-2 as a rule, now and then many more): each session
+    first calls (0-15 as a rule, now and then all of them): each session
     makes PROFILER_LEAD_CALLS calls before the timed ones and measures the
-    last `launches` kernel events it kept. A session that lost more than
-    its lead calls, all of them first calls, is made again, up to
-    `sessions`; a session that lost a later call, or kept more events than
-    it made calls, fails."""
+    last `launches` kernel events it kept. A
+    session that lost more than its lead calls, all of them first calls,
+    is made again, up to `sessions`; where none kept enough, the µs are
+    None (the caller then reads `graph_us`). A session that lost a later
+    call, or kept more events than it made calls, fails."""
     import torch
 
     for _ in range(5):
@@ -313,8 +372,9 @@ def device_us(fn, kernel_names, launches: int = PROFILED_LAUNCHES,
                                  "not a loss of its first calls")
         if record["kept"] >= launches:
             return sum(times) / len(times), len(times), records
-    raise AssertionError(f"profiler sessions {records} kept fewer than {launches} "
-                         f"events of {kernel_names}")
+    log(f"profiler sessions {records} kept fewer than {launches} events of "
+        f"{kernel_names}: device µs from the CUDA graph replay")
+    return None, 0, records
 
 
 def time_shape(kernel, plain, arg_sets, kernel_names, shape, bound) -> dict:
@@ -326,10 +386,14 @@ def time_shape(kernel, plain, arg_sets, kernel_names, shape, bound) -> dict:
     k = lambda: kernel(*next(cycle))
     ms, plain_ms = in_turns(k, lambda: plain(*next(cycle)))
     us, profiled, sessions = device_us(k, kernel_names)
+    replay_us = graph_us(k)
     b_ms, bound_by = bound
-    return {"shape": list(shape), "device_us": us, "ms": ms, "plain_ms": plain_ms,
+    device = us if us is not None else replay_us
+    return {"shape": list(shape), "device_us": device,
+            "device_us_from": "profiler" if us is not None else "graph replay",
+            "graph_replay_us": replay_us, "ms": ms, "plain_ms": plain_ms,
             "bound_us": b_ms * 1e3, "bound_by": bound_by,
-            "share_of_bound": b_ms * 1e3 / us, "input_copies": len(arg_sets),
+            "share_of_bound": b_ms * 1e3 / device, "input_copies": len(arg_sets),
             "profiled_launches": profiled, "profiler_sessions": sessions}
 
 
@@ -743,14 +807,16 @@ def direct_runner(models, device, cfg_sets) -> tuple:
 
 
 def pipeline_phase(models, device, kernels, card: str, after_step=None,
-                   keep_interim: Path | None = None, keep_dim2: Path | None = None) -> dict:
+                   keep_interim: Path | None = None, keep_dim2: Path | None = None,
+                   keep_g_best: dict | None = None) -> dict:
     """The pso-discovery stage through its CLI on JAX-format checkpoints of
     the seeded full-width models: batched fp32 (bit-equal to the runner
     called directly), sequential (B = 1 per class), the shipped dimension 2
     with its landscape, and bf16. Returns each run's launches.
     `after_step(name)`, where given, is called after each step; the batched
     fp32 run's interim dir is copied to `keep_interim` and the dimension-2
-    run's to `keep_dim2`, where given."""
+    run's to `keep_dim2`, and the sequential run's g_best per class put into
+    `keep_g_best`, where given."""
     import shutil
     import tempfile
 
@@ -810,6 +876,8 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
         if seq_diff > SEQ_TOL:
             raise AssertionError(f"pipeline sequential: |g_best - batched| {seq_diff} > {SEQ_TOL}")
         check_artifacts(seq, classes, DIM, hp_iters)
+        if keep_g_best is not None:
+            keep_g_best.update(seq["g_best"])
 
         # 4. the shipped dimension, z = dim_space = 2, with the landscape
         dim2 = run_cli(tmp, "dim2", dirs2, device, kernels, "--batch-classes",
@@ -2306,6 +2374,441 @@ def analysis_claro_phase(device, kernels, card: str, pso_interim: Path, dim2_int
     return out
 
 
+def split_work(kernel: str, b, n, d) -> tuple[int, int]:
+    """(bytes, fp32 operations) of one split half on a shard [b, n, d]:
+    each input read once, each output written once. swarm_pbest_local reads
+    one of pos and p_best_pos per row (pos where the row improved), p_best_val
+    and the fitness, and writes p_best_pos, p_best_val, the candidate row and
+    value, and its index; swarm_move reads pos, vel, p_best_pos, r1, r2, the
+    winner, one g-best row and the [B] scalars, and writes pos, vel, the
+    g-best row, two [B] values and a flag."""
+    if kernel == "swarm_pbest_local":
+        nbytes = 4 * b * (n * d + 2 * n) + 4 * b * (n * d + n + d + 2)
+        return nbytes, 2 * b * n
+    nbytes = 4 * b * (3 * n * d + 2 * n + 2 * d + 4) + 4 * b * (2 * n * d + d + 2) + b
+    return nbytes, 10 * b * n * d + 2 * b * n
+
+
+def check_split(models, device) -> tuple[list, dict]:
+    """B1's split halves against their plain versions over chained
+    iterations at every shape of SPLIT_SHAPES, each swarm cut into SHARDS
+    shards of rows: real fitness values where d is the generator's, forced
+    exact ties, a NaN fitness, and an all-inf start. Per iteration each
+    shard's `swarm_pbest_local` is bit-equal to its plain version; the
+    winner is picked from the shards' candidates by `order_key`, as the
+    collective picks it; each shard's `swarm_move` is bit-equal to its
+    plain version; and the shards together are bit-equal to
+    `swarm_update_plain` on the whole swarm. Returns the two kernels'
+    records (without times and launches) and what `time_kernel` times at
+    SPLIT_TIMED, per kernel, from the first shard."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops.kernels import (
+        swarm_move, swarm_move_plain, swarm_pbest_local, swarm_pbest_local_plain,
+        swarm_update_plain)
+    from gan_discovery_pso_tpu_torch.parallel.swarm_sharding import order_key
+    from gan_discovery_pso_tpu_torch.pso import state_from_positions
+
+    rng = torch.Generator(device=device).manual_seed(SEED + 30)
+    err = 0.0
+    timed = {"swarm_pbest_local": {}, "swarm_move": {}}
+    for b, n, d in SPLIT_SHAPES:
+        pos = torch.randn((b, SHARDS * n if (b, n, d) in SPLIT_TIMED else n, d),
+                          generator=rng, device=device)
+        n_all = pos.shape[1]
+        vel = (torch.randn(pos.shape, generator=rng, device=device) - 0.5) / 10.0
+        s = state_from_positions(pos, vel, 0.73)
+        classes = torch.arange(b, device=device) % N_CLASSES
+        cuts = [0, n_all // 2, n_all]
+        for it in range(5):
+            if it == 0:
+                fit = torch.full((b, n_all), torch.inf, device=device)
+            elif d == DIM:
+                fit = real_fitness(models, s.positions, classes)
+            else:
+                fit = (s.positions * s.positions).sum(dim=2)
+            if it >= 2:  # exact ties at the minimum: the first index must win
+                fit[:, 1::3] = fit.amin(dim=1, keepdim=True)
+            if it == 3:  # a NaN comes first
+                fit[:, n_all - 1] = torch.nan
+            r1 = torch.rand((b, n_all), generator=rng, device=device)
+            r2 = torch.rand((b, n_all), generator=rng, device=device)
+            w = torch.full((b,), 0.73 * 0.99 ** it, device=device)
+            whole = swarm_update_plain(s.positions, s.velocities, s.p_best_pos, s.p_best_val,
+                                       fit, r1, r2, s.g_best_pos, s.g_best_val, s.g_prev_val, w,
+                                       1.496, 1.496)
+            rows = [slice(lo, hi) for lo, hi in zip(cuts, cuts[1:])]
+            part = lambda t, r: t[:, r].contiguous()  # noqa: E731
+            local = []
+            for r in rows:
+                args = (part(s.positions, r), part(s.p_best_pos, r), part(s.p_best_val, r),
+                        part(fit, r), r.start)
+                got, want = swarm_pbest_local(*args), swarm_pbest_local_plain(*args)
+                torch.cuda.synchronize()
+                for x, y in zip(got, want):
+                    err = max(err, bits_equal(x, y))
+                local.append(got)
+                if r.start == 0:
+                    timed["swarm_pbest_local"][(b, n, d)] = args
+            keys = torch.stack([order_key(c.candidate[:, -1], c.cand_index) for c in local])
+            pick = keys.argmin(dim=0)
+            winner = torch.stack([local[int(k)].candidate[i] for i, k in enumerate(pick)])
+            moved = []
+            for r, loc in zip(rows, local):
+                args = (part(s.positions, r), part(s.velocities, r), loc.p_best_pos,
+                        part(r1, r), part(r2, r), winner, s.g_best_pos, s.g_best_val,
+                        s.g_prev_val, w, 1.496, 1.496)
+                got, want = swarm_move(*args), swarm_move_plain(*args)
+                torch.cuda.synchronize()
+                for x, y in zip(got, want):
+                    err = max(err, bits_equal(x, y))
+                moved.append(got)
+                if r.start == 0:
+                    timed["swarm_move"][(b, n, d)] = args
+            cat = lambda xs: torch.cat(xs, dim=1)  # noqa: E731
+            for x, y in ((cat([m.positions for m in moved]), whole.positions),
+                         (cat([m.velocities for m in moved]), whole.velocities),
+                         (cat([c.p_best_pos for c in local]), whole.p_best_pos),
+                         (cat([c.p_best_val for c in local]), whole.p_best_val),
+                         (moved[0].g_best_pos, whole.g_best_pos),
+                         (moved[0].g_best_val, whole.g_best_val),
+                         (moved[0].g_prev_val, whole.g_prev_val),
+                         (moved[0].g_appended, whole.g_appended)):
+                err = max(err, bits_equal(x, y))
+            s = s._replace(positions=whole.positions, velocities=whole.velocities,
+                           p_best_pos=whole.p_best_pos, p_best_val=whole.p_best_val,
+                           g_best_pos=whole.g_best_pos, g_best_val=whole.g_best_val,
+                           g_prev_val=whole.g_prev_val)
+        log(f"swarm_pbest_local + swarm_move [{b},{n_all},{d}] in {SHARDS} shards: each "
+            "bit-equal to plain, together bit-equal to swarm_update_plain, over 5 iterations")
+    records, to_time = [], {}
+    for name in ("swarm_pbest_local", "swarm_move"):
+        records.append({"name": name, "route": "cuda",
+                        "source": "gan_discovery_pso_tpu_torch/csrc/swarm_update.cu",
+                        "replaces": "gan_discovery_pso_tpu/ops/pallas/swarm_update.py:32",
+                        "max_abs_err": err, "library_ms": None, "parity": "bitwise",
+                        "shape": list(SPLIT_TIMED[0])})
+        to_time[name] = []
+        for shape in SPLIT_TIMED:
+            to_time[name].append((shape, timed[name][shape], split_work(name, *shape),
+                                  shape == (1, 2048, 1024)))
+    return records, to_time
+
+
+def dp_step_case(cfg) -> dict:
+    """The data-parallel GAN step's case at the config's widths (z, f,
+    batch): torch-default-init G and D, a real batch and the step's draws,
+    all on the CPU, made alike in every process from one seed."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import AdamConfig
+    from gan_discovery_pso_tpu_torch.models import (
+        Discriminator, DiscriminatorDef, Generator, GeneratorDef, torch_default_init_)
+
+    z_dim, bs = int(cfg.trainer_gan.z_dim), int(cfg.trainer_gan.batch_size)
+    rng = torch.Generator().manual_seed(SEED + 40)
+    gen = torch_default_init_(Generator(GeneratorDef(z_dim, 1, int(
+        cfg.model_gan.network.units_gen))), rng)
+    disc = torch_default_init_(Discriminator(DiscriminatorDef(1, int(
+        cfg.model_gan.network.units_disc))), rng)
+    real = torch.rand((bs, 1, 28, 28), generator=rng) * 2 - 1
+    draws = (torch.randn((bs, z_dim, 1, 1), generator=rng),
+             0.7 + 0.5 * torch.rand((bs,), generator=rng), 0.3 * torch.rand((bs,), generator=rng))
+    return {"gen": gen, "disc": disc, "real": real, "draws": draws,
+            "adam": AdamConfig.from_config(cfg.trainer_gan.optimizer)}
+
+
+DP_WARM_STEPS = 5  # steps timed after the checked one
+
+
+def dp_step(case: dict, device, dtype, group=None, warm: int = 0) -> dict:
+    """One GAN step of `case` on `device` in `dtype` (fp32 parity), over the
+    process group `group` where given: its losses, and G's and D's weights,
+    gradients and BN statistics afterwards, as float64 on the CPU; then
+    `warm` more steps on the same batch, their mean wall ms."""
+    import copy
+
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops import conv as conv_ops
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.train.common import make_optimizer
+    from gan_discovery_pso_tpu_torch.train.dcgan import GanTrainState, make_gan_train_step
+
+    g = copy.deepcopy(case["gen"]).to(device, dtype)
+    d = copy.deepcopy(case["disc"]).to(device, dtype)
+    state = GanTrainState(g, d, make_optimizer(case["adam"], list(g.parameters())),
+                          make_optimizer(case["adam"], list(d.parameters())))
+    finish = conv_ops._finish
+    if dtype == torch.float64:  # the port's convs return fp32 by design
+        conv_ops._finish = lambda o, b: o if b is None else o + b.reshape(1, -1, 1, 1)
+    try:
+        with fp32_parity():
+            step = make_gan_train_step(state, group=group)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real = case["real"].to(device, dtype)
+            draws = tuple(t.to(device, dtype) for t in case["draws"])
+            m = step(real, draws)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            mods = (("G", g), ("D", d))
+            host = lambda t: t.detach().double().cpu()  # noqa: E731
+            out = {"losses": {k: float(v) for k, v in m.items()}, "seconds": seconds,
+                   "weights": {f"{n}.{k}": host(v) for n, mod in mods
+                               for k, v in mod.named_parameters()},
+                   "grads": {f"{n}.{k}": host(v.grad) for n, mod in mods
+                             for k, v in mod.named_parameters()},
+                   "bn": {f"G.{k}": host(v) for k, v in g.named_buffers() if "running" in k}}
+            if warm:
+                t0 = time.perf_counter()
+                for _ in range(warm):
+                    step(real, draws)
+                torch.cuda.synchronize()
+                out["steady_ms"] = (time.perf_counter() - t0) / warm * 1e3
+    finally:
+        conv_ops._finish = finish
+    return out
+
+
+def check_dp_step(dp: dict, one: dict, cpu: dict, ref: dict) -> dict:
+    """The data-parallel step against the one-process step on the card, by
+    the GAN-step gate of `gan_step_card_vs_cpu`: losses within rtol 1e-4;
+    each gradient's largest error from the float64 step at most 4 times
+    the larger of the one-process card step's and the CPU fp32 step's;
+    G's BN running statistics within rtol 1e-5 (atol 1e-6) of the
+    one-process step's."""
+    for k, v in one["losses"].items():
+        if not np.isclose(dp["losses"][k], v, rtol=1e-4, atol=0):
+            raise AssertionError(f"DP GAN step: {k} {dp['losses'][k]} vs one process {v}")
+    worst = {}
+    for k, r in ref["grads"].items():
+        err_dp = float((dp["grads"][k] - r).abs().max())
+        allowed = 4 * max(float((one["grads"][k] - r).abs().max()),
+                          float((cpu["grads"][k] - r).abs().max()))
+        if err_dp > allowed:
+            raise AssertionError(f"DP GAN step: gradient of {k} off float64 by {err_dp}, "
+                                 f"> {allowed}")
+        worst[k] = [err_dp, allowed / 4]
+    bn = 0.0
+    for k, v in one["bn"].items():
+        if not np.allclose(dp["bn"][k].numpy(), v.numpy(), rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"DP GAN step: BN statistic {k} differs from one process")
+        bn = max(bn, float((dp["bn"][k] - v).abs().max()))
+    return {"losses_dp": dp["losses"], "losses_one": one["losses"], "bn_max_abs_diff": bn,
+            "grad_max_err_from_float64_dp_vs_allowed": worst, "dp_first_step_s": dp["seconds"],
+            "one_first_step_s": one["seconds"], "dp_steady_ms": dp["steady_ms"],
+            "one_steady_ms": one["steady_ms"]}
+
+
+def grid_rank(draws: tuple, case: dict) -> dict:
+    """One rank of the parallel phase's 4-rank group on the card: the class
+    x swarm runner (make_batched_sharded_discovery_runner on a GRID mesh)
+    on the main path's models at GRID_ITERATIONS, then the data-parallel
+    GAN step over this rank's swarm-axis pair. Returns its results on the
+    CPU, its launches, wall seconds and collective seconds."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import PsoConfig
+    from gan_discovery_pso_tpu_torch.ops.kernels import KERNELS, SPLIT_KERNELS
+    from gan_discovery_pso_tpu_torch.parallel import (
+        make_batched_sharded_discovery_runner, make_mesh_2d)
+    from gan_discovery_pso_tpu_torch.parallel.launch import spawn
+    from gan_discovery_pso_tpu_torch.pso import state_from_positions
+
+    mesh = make_mesh_2d(GRID, ("class", "swarm"))
+    models = build_models(mesh.device)
+    hp = PsoConfig(n_iterations=GRID_ITERATIONS, n_particles=N_PARTICLES, dim_space=DIM)
+    run = make_batched_sharded_discovery_runner(mesh, hp, eps=EPS)
+    pos, vel, r1, r2 = (t.to(mesh.device) for t in draws)
+    kernels = (*SPLIT_KERNELS, *KERNELS)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    final, hist, _ = run(*models, list(range(N_CLASSES)),
+                         init_state=state_from_positions(pos, vel, hp.w_inertia), r1=r1, r2=r2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dp = dp_step(case, mesh.device, torch.float32, group=mesh.groups["swarm"],
+                 warm=DP_WARM_STEPS)
+    return {"g_best": final.g_best_val.cpu(), "g_history": hist.g_best_val.cpu(),
+            "positions": final.positions.cpu(), "wall_s": wall,
+            "launches": {k.__name__: k.launches for k in kernels},
+            "collectives": mesh.collective_stats(), "coords": mesh.coords, "backend": mesh.backend,
+            "device": str(mesh.device), "seconds_to_group": spawn.seconds_to_group, "dp": dp}
+
+
+def parallel_phase(models, device, kernels, card: str, seq_g_best: dict) -> dict:
+    """The parallel paths on the one card (placed last, after the timings):
+    - `pso-discovery --shard-swarm 2` through the CLI on JAX-format
+      checkpoints of the main path's models, 8 classes x 32 particles x 50
+      iterations in fp32 parity: the CLI starts 2 ranks on cuda:0 over gloo
+      (NCCL refuses two ranks on one card), each swarm split 16 + 16; the
+      artifact contract of the sequential run; g_best per class within
+      SEQ_TOL of the pipeline phase's sequential run on the same draws;
+      per rank B1's halves and B2 50 launches a class, the fused B1 0;
+    - the batched sharded runner at world 1 under NCCL in this process,
+      bit-equal to the batched runner (the fused B1) on the same draws;
+    - 4 ranks on cuda:0 over gloo: the 2 x 2 class x swarm runner at
+      GRID_ITERATIONS against the batched runner (g_best within SEQ_TOL:
+      cuDNN may sum a batch of 64 images in another order than one of
+      256), then the data-parallel GAN step (z 10, f 64, batch 128) on each
+      swarm-axis pair against the one-process step (`check_dp_step`).
+    Returns each run's launches."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from gan_discovery_pso_tpu_torch.core import PsoConfig, load_config
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+    from gan_discovery_pso_tpu_torch.parallel import (
+        distributed_initialize_if_needed, make_batched_sharded_discovery_runner, make_mesh)
+    from gan_discovery_pso_tpu_torch.parallel.launch import spawn
+    from gan_discovery_pso_tpu_torch.pso import (
+        PsoHistory, SwarmState, draw_uniforms, make_batched_discovery_runner, swarm_init)
+
+    t_phase = time.perf_counter()
+    sets100 = {"trainer_gan.z_dim": DIM, "trainer_pso.dim_space": DIM}
+    cfg = load_config(CFG, overrides=sets100)
+    classes = list(DataConfig.from_config(cfg.data).iid_classes)
+    iters = int(cfg.trainer_pso.n_iterations)
+    out = {}
+
+    # 1. the sharded stage through the CLI
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_par_"))
+    try:
+        dirs = write_checkpoints(tmp / "upstream", 1, *models)
+        run = run_cli(tmp, "sharded", dirs, device, kernels, "--shard-swarm", str(SHARDS),
+                      sets=sets100)
+        check_artifacts(run, classes, DIM, iters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    text = run["log"]
+    backend = re.findall(r"\] (\d+) ranks, backend (\w+): (.*)", text)[-1]
+    if backend[1] != "gloo" or backend[2] != ", ".join(
+            f"rank {r} on {device}" for r in range(SHARDS)):
+        raise AssertionError(f"sharded: ranks {backend}, not gloo with every rank on {device}")
+    per_rank = json.loads(re.findall(r"launches per rank: (\[.*\])", text)[-1])
+    want = {"swarm_pbest_local": len(classes) * iters, "swarm_move": len(classes) * iters,
+            "rescale01_rows": len(classes) * iters, "swarm_update": 0}
+    for r, counts in enumerate(per_rank):
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"sharded: rank {r} launched {counts}, not {want}")
+    g = check_g_best(run, len(classes))
+    g_seq = np.asarray([float(seq_g_best[str(c)]) for c in classes])
+    rel = float(np.max(np.abs(g - g_seq) / np.abs(g_seq)))
+    if rel > SEQ_TOL:
+        raise AssertionError(f"sharded: g_best {g} vs sequential {g_seq}, rtol {rel} > {SEQ_TOL}")
+    collective_s = [row["collective_s"] for row in per_rank]
+    up_s = log_seconds(text, r"process group up in ([0-9.]+)s")
+    class_walls = [float(x) for x in re.findall(r"all-reduces in [0-9.]+s, wall ([0-9.]+)s", text)]
+    log(f"parallel: pso-discovery --shard-swarm {SHARDS} (gloo, both ranks on {device}): "
+        f"stage {run['wall']:.6f} s (cli.main, rank start-up included), ranks up in "
+        f"{up_s:.6f} s, runner wall of {len(classes)} classes {class_walls[-1]:.6f} s, "
+        f"collectives {collective_s} s per rank ({100 * max(collective_s) / class_walls[-1]:.1f} "
+        f"% of the runner), artifacts {run['artifact_s']:.6f} s; g_best within {rel:.3e} "
+        f"(rtol) of the sequential run; launches per rank {per_rank} ({card})")
+    out["sharded (rank 0)"] = {k: per_rank[0][k] for k in want}
+
+    # 2. world 1 under NCCL in this process: bit-equal to the fused runner
+    hp = PsoConfig(n_iterations=N_ITERATIONS, n_particles=N_PARTICLES, dim_space=DIM)
+    rng = torch.Generator(device=device).manual_seed(SEED + 31)
+    init = swarm_init(rng, N_CLASSES, N_PARTICLES, DIM, hp.w_inertia, device)
+    r1, r2 = draw_uniforms(rng, N_ITERATIONS, N_CLASSES, N_PARTICLES, device)
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    try:
+        distributed_initialize_if_needed(f"file://{store}/store", 1, 0, device="cuda")
+        mesh = make_mesh(1, "swarm")
+        if mesh.backend != "nccl":
+            raise AssertionError(f"world 1: backend {mesh.backend}, not nccl")
+        sharded = make_batched_sharded_discovery_runner(mesh, hp, eps=EPS, class_axis=None)
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        got = sharded(*models, list(range(N_CLASSES)), init_state=init, r1=r1, r2=r2)
+        torch.cuda.synchronize()
+        nccl_s = time.perf_counter() - t0
+        out["world 1 nccl"] = {k.__name__: k.launches for k in kernels}
+        nccl_stats = mesh.collective_stats()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    fused = make_batched_discovery_runner(hp, eps=EPS, device=device)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    want_run = fused(*models, list(range(N_CLASSES)), init_state=init, r1=r1, r2=r2)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    for part, names in ((0, SwarmState._fields), (1, PsoHistory._fields)):
+        for name, x, y in zip(names, got[part], want_run[part]):
+            bits_equal(x.contiguous(), y.contiguous())
+    want1 = {"swarm_pbest_local": N_ITERATIONS, "swarm_move": N_ITERATIONS,
+             "rescale01_rows": N_ITERATIONS, "swarm_update": 0}
+    if {k: out["world 1 nccl"][k] for k in want1} != want1:
+        raise AssertionError(f"world 1: launches {out['world 1 nccl']}, not {want1}")
+    log(f"parallel: batched sharded runner at world 1 (nccl, {N_CLASSES} x {N_PARTICLES} x "
+        f"{N_ITERATIONS}) bit-equal to the batched runner, final state and history: "
+        f"{nccl_s:.6f} s vs {fused_s:.6f} s; collectives {nccl_stats}; launches "
+        f"{out['world 1 nccl']} ({card})")
+
+    # 3. 4 ranks: the class x swarm runner and the data-parallel GAN step
+    rng = torch.Generator(device=device).manual_seed(SEED + 32)
+    grid_hp = PsoConfig(n_iterations=GRID_ITERATIONS, n_particles=N_PARTICLES, dim_space=DIM)
+    init = swarm_init(rng, N_CLASSES, N_PARTICLES, DIM, grid_hp.w_inertia, device)
+    r1, r2 = draw_uniforms(rng, GRID_ITERATIONS, N_CLASSES, N_PARTICLES, device)
+    draws = tuple(t.cpu() for t in (init.positions, init.velocities, r1, r2))
+    case = dp_step_case(load_config(CFG))
+    world = GRID[0] * GRID[1]
+    t0 = time.perf_counter()
+    ranks = spawn(grid_rank, world, draws, case, device="cuda")
+    spawn_s = time.perf_counter() - t0
+    batched = make_batched_discovery_runner(grid_hp, eps=EPS, device=device)
+    want_final, want_hist, _ = batched(*models, list(range(N_CLASSES)), init_state=init, r1=r1,
+                                       r2=r2)
+    want_g = want_final.g_best_val.cpu().numpy()
+    per_class = N_CLASSES // GRID[0]
+    want_grid = {"swarm_pbest_local": GRID_ITERATIONS, "swarm_move": GRID_ITERATIONS,
+                 "rescale01_rows": GRID_ITERATIONS, "swarm_update": 0}
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["device"] != "cuda:0":
+            raise AssertionError(f"grid rank {r}: {res['backend']} on {res['device']}")
+        if {k: res["launches"][k] for k in want_grid} != want_grid:
+            raise AssertionError(f"grid rank {r}: launches {res['launches']}, not {want_grid}")
+        if not torch.equal(res["g_best"], ranks[0]["g_best"]):
+            raise AssertionError(f"grid rank {r}: g_best differs from rank 0's")
+    g = ranks[0]["g_best"].numpy()
+    rel_grid = float(np.max(np.abs(g - want_g) / np.abs(want_g)))
+    hist_rel = float(np.max(np.abs(ranks[0]["g_history"].numpy() - want_hist.g_best_val.cpu()
+                                   .numpy()) / np.abs(want_hist.g_best_val.cpu().numpy())))
+    if max(rel_grid, hist_rel) > SEQ_TOL or not np.isfinite(ranks[0]["positions"].numpy()).all():
+        raise AssertionError(f"grid: g_best {g} vs batched {want_g} (rtol {rel_grid}, history "
+                             f"{hist_rel}) > {SEQ_TOL}")
+    out["grid (rank 0)"] = {k: ranks[0]["launches"][k] for k in want_grid}
+    log(f"parallel: class x swarm runner on a {GRID[0]} x {GRID[1]} mesh ({world} ranks, "
+        f"{ranks[0]['backend']}, {ranks[0]['device']}; {per_class} classes x {N_PARTICLES // GRID[1]} particles a rank, "
+        f"{GRID_ITERATIONS} iterations): g_best within {rel_grid:.3e}, history {hist_rel:.3e} "
+        f"(rtol) of the batched runner; runner wall per rank "
+        f"{[round(x['wall_s'], 6) for x in ranks]} s, collectives per rank "
+        f"{[x['collectives'] for x in ranks]}; ranks up in "
+        f"{[round(x['seconds_to_group'], 6) for x in ranks]} s, spawn to join {spawn_s:.6f} s; "
+        f"launches per rank {[x['launches'] for x in ranks]} ({card})")
+
+    one = dp_step(case, device, torch.float32, warm=DP_WARM_STEPS)
+    cpu = dp_step(case, torch.device("cpu"), torch.float32)
+    ref = dp_step(case, torch.device("cpu"), torch.float64)
+    summary = check_dp_step(ranks[0]["dp"], one, cpu, ref)
+    if ranks[0]["dp"]["losses"] != ranks[1]["dp"]["losses"]:
+        raise AssertionError("DP GAN step: the pair's ranks report other losses")
+    log(f"parallel: data-parallel GAN step over {GRID[1]} ranks ({ranks[0]['backend']}, "
+        f"{ranks[0]['device']}; z {case['gen'].gen[0][0].in_channels}, f "
+        f"{case['gen'].gen[1][0].out_channels}, batch {case['real'].shape[0]}): "
+        f"{json.dumps(summary)} ({card})")
+    log(f"parallel phase: {time.perf_counter() - t_phase:.6f} s ({card})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2321,7 +2824,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from gan_discovery_pso_tpu_torch.ops.kernels import (
-        KERNELS, _build, rescale01_rows, rescale01_rows_plain, swarm_update, swarm_update_plain)
+        KERNELS, SPLIT_KERNELS, _build, rescale01_rows, rescale01_rows_plain, swarm_move,
+        swarm_move_plain, swarm_pbest_local, swarm_pbest_local_plain, swarm_update,
+        swarm_update_plain)
 
     card = card_line()
     log(f"card: {card}")
@@ -2336,7 +2841,8 @@ def main() -> int:
     models = build_models(device)
     swarm_rec, swarm_to_time = check_swarm_update(models, device)
     rescale_rec, rescale_to_time = check_rescale(models, device)
-    records = [swarm_rec, rescale_rec]
+    split_recs, split_to_time = check_split(models, device)
+    records = [swarm_rec, rescale_rec, *split_recs]
 
     evals = N_CLASSES * N_PARTICLES * N_ITERATIONS
     results = {}
@@ -2368,8 +2874,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pso_") as keep:
         pso_interim, upstream = Path(keep) / "batched", Path(keep) / "assessor"
         dim2_interim, ood_interim = Path(keep) / "dim2", Path(keep) / "ood"
+        seq_g_best = {}
         pipeline_launches = pipeline_phase(models, device, KERNELS, card,
-                                           keep_interim=pso_interim, keep_dim2=dim2_interim)
+                                           keep_interim=pso_interim, keep_dim2=dim2_interim,
+                                           keep_g_best=seq_g_best)
         pipeline_launches.update(inverter_phase(models, device, KERNELS, card,
                                                 keep_interim=ood_interim))
         pipeline_launches.update(inverter_training_phase(models, device, KERNELS, card,
@@ -2386,14 +2894,23 @@ def main() -> int:
         + json.dumps(profile_main_path(models, device, KERNELS, torch.bfloat16)))
     diff = check_against_cpu(models, device, KERNELS)
     log(f"small input: card path (kernels) agrees with the CPU path (plain) to {diff:.3e}")
-    # the standalone timings come last, so that the main path's numbers are
-    # taken before this process has run any profiler session
+    # the standalone timings come after the main path's numbers, so that
+    # those are taken before this process has run any profiler session
     time_kernel(swarm_rec, swarm_update, swarm_update_plain, swarm_to_time)
     time_kernel(rescale_rec, rescale01_rows, rescale01_rows_plain, rescale_to_time)
+    time_kernel(split_recs[0], swarm_pbest_local, swarm_pbest_local_plain,
+                split_to_time["swarm_pbest_local"])
+    time_kernel(split_recs[1], swarm_move, swarm_move_plain, split_to_time["swarm_move"])
+    # the parallel phase after every profiler session: in a run where it came
+    # before them, three sessions of B1 each lost their first 15 kernel events
+    pipeline_launches.update(parallel_phase(models, device, (*KERNELS, *SPLIT_KERNELS), card,
+                                            seq_g_best))
 
     for rec in records:
-        rec["launches"] = launches32[rec["name"]]
-        rec["pipeline_launches"] = {run: counts[rec["name"]]
+        # the split halves' path is the sharded stage: rank 0's count there
+        rec["launches"] = (launches32[rec["name"]] if rec["name"] in launches32
+                           else pipeline_launches["sharded (rank 0)"][rec["name"]])
+        rec["pipeline_launches"] = {run: counts.get(rec["name"], "not counted")
                                     for run, counts in pipeline_launches.items()}
         rec["device_us_per_launch"] = prof.get("port_kernels_us_per_launch", {}).get(
             rec["name"], "not measured")

@@ -28,15 +28,21 @@ neither it nor JAX. Module paths mirror the JAX package's:
 - `analysis/`: PCA, k-means and the Gaussian mixture in torch after
   scikit-learn's rules (`cluster.py`), UMAP (`umap_impl.py`), the
   latent analyses (`latent.py`) and the report writers (`reporting.py`);
+- `parallel/`: ranks with `torch.distributed` (process groups, meshes,
+  the rank launcher), the sharded swarm with B1's split halves around the
+  global-best collective, the class x swarm and multi-swarm runners; the
+  data-parallel GAN step lives in `train/dcgan.py`;
 - `pipelines/`, `cli/`: every stage of the JAX package but `sweep` and the
   export and conversion commands, and their command line
   (`python -m gan_discovery_pso_tpu_torch.cli <stage>`).
 """
 
+from gan_discovery_pso_tpu_torch import parallel
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig
 from gan_discovery_pso_tpu_torch.pso.runner import (
     make_batched_discovery_runner,
     make_discovery_runner,
 )
 
-__all__ = ["PsoConfig", "make_batched_discovery_runner", "make_discovery_runner"]
+__all__ = ["PsoConfig", "make_batched_discovery_runner", "make_discovery_runner",
+           "parallel"]

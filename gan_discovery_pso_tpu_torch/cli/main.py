@@ -15,7 +15,7 @@ branches :351-448):
     python -m gan_discovery_pso_tpu_torch.cli cnn|cnn-multipatient [--epochs E] ...
     python -m gan_discovery_pso_tpu_torch.cli pso-discovery \\
         --cfg configs/dcgan_mnist.yaml --path-gan DIR --path-cnn DIR \\
-        [--batch-classes] [--fast-math] [--tiny] [--limit N] \\
+        [--batch-classes | --shard-swarm N] [--fast-math] [--tiny] [--limit N] \\
         [--set key=value ...] [--device cuda|cpu|cuda:N]
     python -m gan_discovery_pso_tpu_torch.cli pso-inverter \\
         --path-gan DIR --path-cnn DIR --path-inverter DIR \\
@@ -40,6 +40,15 @@ branches :351-448):
         --path-ood-pso DIR [--ood-patient P] ...
     python -m gan_discovery_pso_tpu_torch.cli claro-preprocess \\
         --cfg configs/claro_preprocess.yaml [--limit N] ...
+
+`pso-discovery --shard-swarm N` splits each class's swarm over N ranks
+(`parallel/`): in a process group of N ranks already up (a caller's, or
+one the GDPT_COORDINATOR / GDPT_NUM_PROCESSES / GDPT_PROCESS_ID variables
+configure; GDPT_COORDINATOR="" under torchrun) every rank runs the command;
+otherwise the command starts N ranks itself (`parallel/launch.py`), rank r
+on `cuda:{r % cards}` (`--device cpu`: the CPU), NCCL when each rank has a
+card of its own, else gloo. Rank 0 makes the run dir and writes every
+artifact and log line. It cannot be combined with --batch-classes.
 
 `--path-cae`, `--path-classifiers`, `--path-gan`, `--path-cnn`,
 `--path-inverter` and `--path-vqvae` are the models dirs of either
@@ -72,6 +81,7 @@ naming the ROADMAP item that will port it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 import torch
@@ -205,7 +215,8 @@ def _parser() -> argparse.ArgumentParser:
             p.add_argument("--batch-classes", action="store_true",
                            help="advance all class swarms in one batch")
             p.add_argument("--shard-swarm", type=int, default=None, metavar="N",
-                           help="shard particles over N devices (not ported: ROADMAP A16)")
+                           help="split each class's swarm over N ranks (torch.distributed; "
+                                "started here unless a group of N is up)")
         if name == "pso-inverter":
             p.add_argument("--ood-patient", type=int, default=None)
     p = sub.add_parser("dcgan")
@@ -262,20 +273,37 @@ def main(argv=None):
         except NotPortedError as e:
             print(e, file=sys.stderr)
             return 2
-    if getattr(args, "shard_swarm", None):
-        print("--shard-swarm: not yet ported to the PyTorch package (ROADMAP A16)",
-              file=sys.stderr)
-        return 2
     if args.limit is not None and args.limit < 0:
         print(f"--limit {args.limit}: a cap on images must not be negative", file=sys.stderr)
         return 2
+    shards = getattr(args, "shard_swarm", None)
+    if shards is not None:
+        from gan_discovery_pso_tpu_torch.parallel import distributed_initialize_if_needed
+
+        distributed_initialize_if_needed(device=args.device)  # GDPT_*, else nothing
+        refused = _refuse_shards(args)
+        if refused:
+            print(refused, file=sys.stderr)
+            return 2
+        if not torch.distributed.is_initialized():
+            from gan_discovery_pso_tpu_torch.parallel.launch import spawn
+
+            spawn(_shard_rank, shards, argv, device=args.device)
+            return 0
 
     from gan_discovery_pso_tpu_torch import pipelines as P
 
     stage = args.stage
     fast_math = torch.bfloat16 if args.fast_math else None
-    ctx = _ctx(args, stage.replace("-", "_"))
-    with ctx.tee():
+    writer = shards is None or torch.distributed.get_rank() == 0
+    ctx = _ctx(args, stage.replace("-", "_")) if shards is None else _rank_ctx(args, stage)
+    with ctx.tee() if writer else contextlib.nullcontext():
+        if shards is not None and writer:
+            from gan_discovery_pso_tpu_torch.parallel.launch import spawn
+
+            if spawn.seconds_to_group is not None:
+                print(f"[{stage}] {shards} ranks started, process group up in "
+                      f"{spawn.seconds_to_group:.6f}s")
         if stage == "cae":
             P.run_cae(ctx, epochs=_epochs(args))
         elif stage == "classifiers":
@@ -309,7 +337,7 @@ def main(argv=None):
             gen = _load_gan(args, ctx)
             cnn, rdef = _load_cnn(args, ctx)
             P.run_pso_discovery(ctx, gen, cnn, rdef, batch_classes=args.batch_classes,
-                                fast_math_dtype=fast_math)
+                                shard_devices=shards, fast_math_dtype=fast_math)
         elif stage == "inverter":
             gen = _load_gan(args, ctx)
             cnn = None
@@ -364,8 +392,48 @@ def main(argv=None):
             cnn, rdef = _load_cnn(args, ctx)
             P.run_pso_inverter(ctx, gen, enc, cnn, rdef, ood_patient=args.ood_patient,
                                fine_tune_epochs=_epochs(args), fast_math_dtype=fast_math)
-    print(f"[{stage}] done → {ctx.run.reports_dir}")
+    if writer:
+        print(f"[{stage}] done → {ctx.run.reports_dir}")
     return 0
+
+
+def _refuse_shards(args) -> str | None:
+    """Why `--shard-swarm` cannot run as asked, or None."""
+    if args.batch_classes:
+        # the JAX stage's ValueError (pipelines/pso_discovery.py:70-71)
+        return "--shard-swarm: batch_classes and shard_devices are mutually exclusive"
+    if args.shard_swarm < 1:
+        return f"--shard-swarm {args.shard_swarm}: needs at least one rank"
+    dist = torch.distributed
+    if dist.is_initialized() and dist.get_world_size() != args.shard_swarm:
+        return (f"--shard-swarm {args.shard_swarm}: this process group has "
+                f"{dist.get_world_size()} ranks")
+    return None
+
+
+def _shard_rank(argv) -> None:
+    """One rank of a `--shard-swarm` run that the CLI started."""
+    rc = main(argv)
+    if rc != 0:
+        raise RuntimeError(f"rank {torch.distributed.get_rank()}: the CLI returned {rc}")
+
+
+def _rank_ctx(args, stage: str):
+    """The stage context of this rank of a sharded run: rank 0 makes the run
+    dir, whose id it broadcasts; every rank runs on its own device
+    (`parallel.mesh.rank_device`)."""
+    from gan_discovery_pso_tpu_torch.parallel.mesh import rank_device
+
+    dist = torch.distributed
+    rank = dist.get_rank()
+    args.device = str(rank_device(args.device, rank))
+    ctx = _ctx(args, stage.replace("-", "_")) if rank == 0 else None
+    run_id = torch.tensor([ctx.run.run_id if ctx else 0], device=args.device)
+    dist.broadcast(run_id, src=0)
+    if ctx is None:
+        args.resume_id = int(run_id)
+        ctx = _ctx(args, stage.replace("-", "_"))
+    return ctx
 
 
 if __name__ == "__main__":

@@ -15,10 +15,16 @@ the same tree.
   such dtype); every other array comes back as numpy.
 - `restore_tree` keeps `{mean, var}` BN leaves as dicts, the form
   `compat/weights.py` reads.
+- A tree of ranks (`save_pytree(..., mesh=)`): leaves that are `RowShard`s
+  (a rank's rows of a sharded array) are gathered onto every rank of the
+  mesh, bit for bit, and its rank 0 alone writes: the file is byte-equal to
+  the one-process save of the whole arrays, as the JAX package's
+  `save_pytree` gathers a cross-process array (`tests/test_multihost.py`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import struct
 from pathlib import Path
@@ -344,9 +350,40 @@ def _plainify(node):
     return node
 
 
-def save_pytree(path: str | Path, tree: Any) -> Path:
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """A rank's rows [offset, offset + local.shape[dim]) along `dim` of an
+    array of `rows` rows that the ranks of a mesh hold between them."""
+
+    local: torch.Tensor
+    offset: int
+    rows: int
+    dim: int = 0
+
+
+def _gather_shards(node, mesh):
+    from gan_discovery_pso_tpu_torch.parallel.mesh import gather_rows
+
+    if isinstance(node, RowShard):
+        return gather_rows(node.local, node.offset, node.rows, mesh, node.dim).cpu()
+    if hasattr(node, "_fields"):
+        return type(node)(*(_gather_shards(v, mesh) for v in node))
+    if isinstance(node, dict):
+        return {k: _gather_shards(v, mesh) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_gather_shards(v, mesh) for v in node)
+    return node
+
+
+def save_pytree(path: str | Path, tree: Any, mesh=None) -> Path | None:
     """Atomically write a pytree of arrays/scalars/dicts as flax msgpack;
-    NamedTuples go out as dicts keyed by field name."""
+    NamedTuples go out as dicts keyed by field name. With a `mesh`
+    (`parallel.Mesh`), every rank calls this with its `RowShard`s; rank 0
+    writes the gathered tree and returns the path, the others None."""
+    if mesh is not None:
+        tree = _gather_shards(tree, mesh)
+        if mesh.rank != 0:
+            return None
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     blob = msgpack_serialize(_plainify(tree))

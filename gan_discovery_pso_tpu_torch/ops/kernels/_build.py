@@ -45,6 +45,15 @@ _SIGNATURES = {
         _I, _I, _I,  # n_swarms, n_particles, dim
         _I, _I,  # rows_per_cta, vec_d
         _P),  # stream
+    # pos, pbp, pbv, fit, out_pbp, out_pbv, out_cand, out_idx, n_swarms, n,
+    # d, row_offset, rows_per_cta, vec_d, stream
+    "gdpt_swarm_pbest_local": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "gdpt_swarm_move": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # pos .. w
+        _F, _F,  # w_cognitive, w_social
+        _P, _P, _P,  # out_big, out_small, out_appended
+        _I, _I, _I, _I, _I,  # n_swarms, n, d, rows_per_cta, vec_d
+        _P),  # stream
 }
 
 _lock = threading.Lock()

@@ -11,6 +11,14 @@ The wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises. `swarm_update.launches` counts kernel
 launches. `swarm_geometry` and `vector_path` are the pure-Python choices
 of the launch: tile size and the float4 or scalar rows.
+
+The split form, for a swarm whose particles are spread over ranks
+(`parallel/swarm_sharding.py`): `swarm_pbest_local` (the personal best of
+the shard's rows and the shard's global-best candidate) and `swarm_move`
+(the g-best bookkeeping and the move, given the winner every rank holds
+after the collective), each a kernel of the same `.cu` beside its plain
+version, each with its own launch count. The halves over all shards equal
+`swarm_update_plain` on the whole swarm, bit for bit.
 """
 
 from __future__ import annotations
@@ -152,3 +160,135 @@ def swarm_update(pos, vel, p_best_pos, p_best_val, fitness, r1, r2,
 
 
 swarm_update.launches = 0
+
+
+class PbestLocal(NamedTuple):
+    p_best_pos: torch.Tensor  # [B, n, d]
+    p_best_val: torch.Tensor  # [B, n]
+    candidate: torch.Tensor  # [B, d + 1]: the shard's best row, then its value
+    cand_index: torch.Tensor  # [B] int32: its global index (row_offset + local)
+
+
+class SwarmMove(NamedTuple):
+    positions: torch.Tensor  # [B, n, d]
+    velocities: torch.Tensor  # [B, n, d]
+    g_best_pos: torch.Tensor  # [B, d]
+    g_best_val: torch.Tensor  # [B]
+    g_prev_val: torch.Tensor  # [B]
+    g_appended: torch.Tensor  # [B] bool
+
+
+def swarm_pbest_local_plain(pos, p_best_pos, p_best_val, fitness,
+                            row_offset: int) -> PbestLocal:
+    """The personal best of a shard's rows [B, n, d] and the shard's
+    candidate for the global best: `swarm_update_plain`'s argmin order (NaN
+    first, then the lowest value, then the lowest index), its index counted
+    from the swarm's first row (the shard starts at `row_offset`)."""
+    improved = fitness < p_best_val
+    pbv = torch.where(improved, fitness, p_best_val)
+    pbp = torch.where(improved[..., None], pos, p_best_pos)
+    cand = torch.argmin(pbv, dim=1)
+    row = pbp[torch.arange(pbp.shape[0], device=pbp.device), cand]
+    candidate = torch.cat([row, pbv.gather(1, cand[:, None])], dim=1)
+    return PbestLocal(pbp, pbv, candidate, (cand + row_offset).to(torch.int32))
+
+
+def swarm_move_plain(pos, vel, p_best_pos, r1, r2, winner, g_best_pos, g_best_val,
+                     g_prev_val, w, w_cognitive: float, w_social: float) -> SwarmMove:
+    """`swarm_update_plain`'s g-best bookkeeping and move of a shard's rows,
+    given the swarm's winner [B, d + 1] (its row, then its value)."""
+    d = pos.shape[2]
+    win_row, win_val = winner[:, :d], winner[:, d]
+    g_improved = win_val < g_best_val
+    appended = g_improved & ~torch.isinf(g_best_val)
+    gbv = torch.where(g_improved, win_val, g_best_val)
+    gbp = torch.where(g_improved[:, None], win_row, g_best_pos)
+    gpv = torch.where(appended, g_best_val, g_prev_val)
+    new_vel = (w[:, None, None] * vel
+               + (w_cognitive * r1[..., None]) * (gbp[:, None, :] - pos)
+               + (w_social * r2[..., None]) * (p_best_pos - pos))
+    return SwarmMove(pos + new_vel, new_vel, gbp, gbv, gpv, appended)
+
+
+MAX_MOVE_D = 58112  # the g-best row in dynamic shared memory: 227 KB
+
+
+def _check_split(name, pos, tensors, shapes):
+    if pos.dim() != 3:
+        raise ValueError(f"{name}: positions must be [B, N, d], got {tuple(pos.shape)}")
+    b, n, d = pos.shape
+    index = pos.get_device()
+    for t, shape in zip((pos, *tensors), shapes):
+        if (t.shape != shape or t.dtype != torch.float32 or t.get_device() != index
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: expected contiguous fp32 tensors on one device of shapes "
+                f"{list(shapes)}; got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if n < 1 or d < 1:
+        raise ValueError(f"{name}: a shard needs at least one particle and one dimension")
+    if b > MAX_SWARMS:
+        raise ValueError(f"{name}: at most {MAX_SWARMS} swarms in one launch, got {b}")
+
+
+def swarm_pbest_local(pos, p_best_pos, p_best_val, fitness, row_offset: int) -> PbestLocal:
+    """The first half of the split update; arguments as
+    `swarm_pbest_local_plain`. On the card the p_best outputs are views of
+    one fp32 buffer."""
+    dev = pos.device
+    if dev.type == "cpu":
+        return swarm_pbest_local_plain(pos, p_best_pos, p_best_val, fitness, row_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"swarm_pbest_local: unsupported device {dev}")
+    b, n, d = pos.shape
+    _check_split("swarm_pbest_local", pos, (p_best_pos, p_best_val, fitness),
+                 ((b, n, d),) * 2 + ((b, n),) * 2)
+    out = pos.new_empty(b * n * d + b * n + b * (d + 1))
+    idx = pos.new_empty((b,), dtype=torch.int32)
+    o_pbp, o_pbv, o_cand = out.split_with_sizes((b * n * d, b * n, b * (d + 1)))
+    rows_per_cta = swarm_geometry(b, n, _sm_count(dev.index))
+    vec_d = vector_path(d, (pos.data_ptr(), p_best_pos.data_ptr(), out.data_ptr()))
+    err = _build.call(_build.library().gdpt_swarm_pbest_local, dev, pos.data_ptr(),
+                      p_best_pos.data_ptr(), p_best_val.data_ptr(), fitness.data_ptr(),
+                      o_pbp.data_ptr(), o_pbv.data_ptr(), o_cand.data_ptr(), idx.data_ptr(),
+                      b, n, d, int(row_offset), rows_per_cta, vec_d)
+    _build.check(err, "swarm_pbest_local")
+    swarm_pbest_local.launches += 1
+    return PbestLocal(o_pbp.view(b, n, d), o_pbv.view(b, n), o_cand.view(b, d + 1), idx)
+
+
+def swarm_move(pos, vel, p_best_pos, r1, r2, winner, g_best_pos, g_best_val, g_prev_val, w,
+               w_cognitive: float, w_social: float) -> SwarmMove:
+    """The second half of the split update; arguments as
+    `swarm_move_plain`. On the card the outputs are views of two fp32
+    buffers and a bool one."""
+    args = (vel, p_best_pos, r1, r2, winner, g_best_pos, g_best_val, g_prev_val, w)
+    dev = pos.device
+    if dev.type == "cpu":
+        return swarm_move_plain(pos, *args, w_cognitive, w_social)
+    if dev.type != "cuda":
+        raise ValueError(f"swarm_move: unsupported device {dev}")
+    b, n, d = pos.shape
+    _check_split("swarm_move", pos, args,
+                 ((b, n, d),) * 3 + ((b, n),) * 2 + ((b, d + 1), (b, d)) + ((b,),) * 3)
+    if d > MAX_MOVE_D:
+        raise ValueError(f"swarm_move: d = {d} exceeds the {MAX_MOVE_D} floats of the "
+                         "g-best row in shared memory")
+    big = pos.new_empty((2, b, n, d))
+    small = pos.new_empty(b * d + 2 * b)
+    appended = g_best_val.new_empty((b,), dtype=torch.bool)
+    rows_per_cta = swarm_geometry(b, n, _sm_count(dev.index))
+    vec_d = vector_path(d, (pos.data_ptr(), vel.data_ptr(), p_best_pos.data_ptr(),
+                            big.data_ptr()))
+    err = _build.call(_build.library().gdpt_swarm_move, dev, pos.data_ptr(),
+                      *(t.data_ptr() for t in args), float(w_cognitive), float(w_social),
+                      big.data_ptr(), small.data_ptr(), appended.data_ptr(), b, n, d,
+                      rows_per_cta, vec_d)
+    _build.check(err, "swarm_move")
+    swarm_move.launches += 1
+    o_pos, o_vel = big.unbind(0)
+    o_gbp, o_gbv, o_gpv = small.split_with_sizes((b * d, b, b))
+    return SwarmMove(o_pos, o_vel, o_gbp.view(b, d), o_gbv, o_gpv, appended)
+
+
+swarm_pbest_local.launches = 0
+swarm_move.launches = 0

@@ -27,10 +27,19 @@ override them per class (parity tests feed the JAX package's draws).
 A host without pandas, matplotlib or PIL still runs the stage: it prints
 one line per artifact family it cannot write, naming the package, and
 writes the rest (the npz, the landscape and history pickles, timing.json).
+
+`shard_devices=N` (the CLI's `--shard-swarm N`, JAX `:100-111`) runs on
+every rank of a process group of N: each class's swarm goes through
+`parallel.make_sharded_discovery_runner`, its particles split over the
+ranks, from the same per-class draws, and rank 0 alone writes the
+artifacts and the log lines. The log names each rank's backend and
+device, each class's collectives and their seconds, and each rank's
+kernel launches.
 """
 
 from __future__ import annotations
 
+import json
 import pickle
 import time
 
@@ -119,11 +128,11 @@ def run_pso_discovery(
     The sequential loop over classes, one B = 1 runner for all of them;
     batch_classes=True runs every class's swarm in one batch
     (`run_pso_discovery_batched`). fast_math_dtype=torch.bfloat16 runs the
-    forwards in bf16 (the swarm math stays fp32)."""
-    if shard_devices:
-        raise NotImplementedError(
-            "sharding one swarm over several devices is not ported yet "
-            "(ROADMAP A16: parallel/)")
+    forwards in bf16 (the swarm math stays fp32). shard_devices=N runs each
+    class's swarm sharded over the N ranks of the process group this
+    process belongs to (module docstring); rank 0 writes."""
+    if batch_classes and shard_devices:
+        raise ValueError("batch_classes and shard_devices are mutually exclusive")
     if batch_classes:
         return run_pso_discovery_batched(
             ctx, gen_model, assessor, cnn_def, classes=classes, control=control,
@@ -133,24 +142,46 @@ def run_pso_discovery(
     if classes is None:
         classes = ctx.data_cfg.iid_classes
     c2i = cnn_def.class_to_idx()
-    can = _writable("pso_discovery", make_plots, image_grids)
+    mesh = None
+    if shard_devices:
+        from gan_discovery_pso_tpu_torch.parallel import make_mesh, make_sharded_discovery_runner
 
-    ctx.notify("pso_discovery_start", classes=list(classes), hp=repr(hp))
+        mesh = make_mesh(shard_devices, "swarm", device=ctx.device)
+        run = make_sharded_discovery_runner(mesh, hp, control=control, threshold=threshold,
+                                            dtype=fast_math_dtype)
+        launches0 = _launches()
+    else:
+        run = make_batched_discovery_runner(hp, control=control, threshold=threshold,
+                                            dtype=fast_math_dtype, device=ctx.device)
+    writer = mesh is None or mesh.rank == 0
+    say = print if writer else (lambda *a, **k: None)
+    if mesh is not None:
+        _log_ranks(mesh, say)
+    can = _writable("pso_discovery", make_plots, image_grids) if writer else None
+
+    if writer:
+        ctx.notify("pso_discovery_start", classes=list(classes), hp=repr(hp))
     results: dict = {}
     timings: dict = {}
     overall_history: dict = {}
-    run = make_batched_discovery_runner(hp, control=control, threshold=threshold,
-                                        dtype=fast_math_dtype, device=ctx.device)
-    fitness_dyn = _landscape_fitness(hp, make_plots, gen_model, assessor, control, threshold)
-    tb_writer = ctx.metrics("img_pso", tensorboard=True) if tensorboard else None
+    fitness_dyn = (_landscape_fitness(hp, make_plots, gen_model, assessor, control, threshold)
+                   if writer else None)
+    tb_writer = ctx.metrics("img_pso", tensorboard=True) if tensorboard and writer else None
     # every class's swarm is queued before any is collected: the swarms are
     # independent, and the host writes class c's artifacts while the card
-    # runs later classes
+    # runs later classes (a sharded run returns each class complete)
     t_start = time.time()
     dispatched = []
     for label in classes:
-        dispatched.append((label, run(gen_model, assessor, [c2i.get(label, 1)],
-                                      **_stacked(hp, [_class_draws(ctx, hp, label, draws)]))))
+        before = mesh.collective_stats() if mesh is not None else None
+        out = run(gen_model, assessor, [c2i.get(label, 1)],
+                  **_stacked(hp, [_class_draws(ctx, hp, label, draws)]))
+        if mesh is not None:
+            now = mesh.collective_stats()
+            say(f"[pso_discovery/sharded] class {label}: {now['all_reduce'] - before['all_reduce']} "
+                f"all-reduces in {now['seconds'] - before['seconds']:.6f}s, "
+                f"wall {time.time() - t_start:.6f}s")
+        dispatched.append((label, out))
     artifact_s = 0.0
     for label, (final, hist, init) in dispatched:
         # a result transfer is the completion barrier; the card runs the
@@ -158,6 +189,8 @@ def run_pso_discovery(
         res = SwarmResult(final, hist, init, hp).swarm(0)
         results[label] = res
         timings[f"training_time_class_{label}"] = time.time() - t_start
+        if not writer:
+            continue
         t_art = time.perf_counter()
         _emit_class(ctx, res, label, gen_model, fitness_dyn, c2i.get(label, 1), can,
                     make_plots, image_grids, tb_writer, overall_history)
@@ -165,6 +198,10 @@ def run_pso_discovery(
         print(f"[pso_discovery] class {label}: g_best={float(res.g_best_val):.5f} "
               f"iters={res.last_iteration[0]} in "
               f"{timings[f'training_time_class_{label}']:.1f}s")
+    if mesh is not None:
+        _log_launches(mesh, launches0, say)
+    if not writer:
+        return results
 
     t_art = time.perf_counter()
     ctx.run.write_timing(timings)
@@ -175,6 +212,39 @@ def run_pso_discovery(
     print(f"[pso_discovery] artifacts written in {artifact_s:.6f}s")
     ctx.notify("pso_discovery_done")
     return results
+
+
+def _launches() -> dict:
+    from gan_discovery_pso_tpu_torch.ops.kernels import KERNELS, SPLIT_KERNELS
+
+    return {k.__name__: k.launches for k in (*SPLIT_KERNELS, *KERNELS)}
+
+
+def _per_rank(mesh, values: list) -> list:
+    """[rank][i] = rank's values[i], on every rank (one all-reduce)."""
+    t = torch.zeros((mesh.size(), len(values)), dtype=torch.float64, device=mesh.device)
+    t[mesh.rank] = torch.tensor(values, dtype=torch.float64)
+    return mesh.all_reduce(t, "sum").tolist()
+
+
+def _log_ranks(mesh, say) -> None:
+    """Each rank's device, as the ranks report it, and the backend."""
+    dev = mesh.device
+    table = _per_rank(mesh, [-1 if dev.type == "cpu" else dev.index])
+    where = ", ".join(f"rank {r} on {'cpu' if i < 0 else f'cuda:{int(i)}'}"
+                      for r, (i,) in enumerate(table))
+    say(f"[pso_discovery/sharded] {mesh.size()} ranks, backend {mesh.backend}: {where}")
+
+
+def _log_launches(mesh, before: dict, say) -> None:
+    """Each rank's kernel launches in this stage and collective seconds."""
+    names = list(before)
+    now = _launches()
+    table = _per_rank(mesh, [now[k] - before[k] for k in names]
+                      + [mesh.collective_stats()["seconds"]])
+    per_rank = [{**{k: int(v) for k, v in zip(names, row)}, "collective_s": row[-1]}
+                for row in table]
+    say(f"[pso_discovery/sharded] launches per rank: {json.dumps(per_rank)}")
 
 
 def run_pso_discovery_batched(
@@ -381,8 +451,6 @@ def _emit_landscape(res: SwarmResult, fitness, general, plots, resolution: int =
 def _write_overall_history(ctx: StageContext, overall_history: dict):
     """`general/overall_history.pkl` (reference pso_discovery.py:250-251) and
     a readable JSON twin."""
-    import json
-
     ctx.run.write_overall_history(overall_history)
     with open(ctx.run.general_dir / "overall_history.json", "w") as f:
         json.dump({k: {kk: [float(x) for x in vv] for kk, vv in v.items()}

@@ -120,41 +120,62 @@ def make_batched_discovery_runner(
     def run(gen_model: nn.Module, assessor: nn.Module, class_idxs, *,
             rng: torch.Generator | None = None, init_state: SwarmState | None = None,
             r1: torch.Tensor | None = None, r2: torch.Tensor | None = None):
-        _on_device(gen_model, device, "gen_model")
-        _on_device(assessor, device, "assessor")
-        classes = torch.as_tensor(class_idxs, dtype=torch.long, device=device).reshape(-1)
-        if stack:
-            classes = classes.repeat(stack)
-        b = classes.numel()
-        if (init_state is None or r1 is None or r2 is None) and rng is None:
-            raise ValueError("pass rng, or init_state, r1 and r2")
-        if init_state is None:
-            init_state = swarm_init(rng, b, hp.n_particles, hp.dim_space,
-                                    hp.w_inertia, device)
-        if r1 is None or r2 is None:
-            r1, r2 = draw_uniforms(rng, hp.n_iterations, b, hp.n_particles, device)
-        gen = cast_model(gen_model, dtype)
-        cnn = cast_model(assessor, dtype)
-        k = chunk or hp.n_particles
-        row_classes = classes.repeat_interleave(k)  # [B·k], swarm-major
-
-        def fitness_rows(positions):  # [B, k, d] → [B, k]
-            vals = apply_discovery_fitness(
-                positions.reshape(b * k, -1), gen, cnn, row_classes,
-                control=control, threshold=threshold, eps=eps, dtype=dtype)
-            return vals.reshape(b, k)
-
-        def fitness(positions):  # [B, N, d] → [B, N]
-            if chunk is None:
-                return fitness_rows(positions)
-            return torch.cat([fitness_rows(p.contiguous())
-                              for p in positions.split(chunk, dim=1)], dim=1)
-
+        classes, init_state, r1, r2 = discovery_inputs(
+            hp, device, gen_model, assessor, class_idxs, stack, rng, init_state, r1, r2)
+        fitness = discovery_fitness(cast_model(gen_model, dtype), cast_model(assessor, dtype),
+                                    classes, hp.n_particles, control, threshold, eps, dtype,
+                                    chunk)
         precision = fp32_parity() if dtype is None else contextlib.nullcontext()
         with precision, torch.inference_mode():
-            return optimize(fitness, hp, init_state, r1.to(device), r2.to(device))
+            return optimize(fitness, hp, init_state, r1, r2)
 
     return run
+
+
+def discovery_inputs(hp: PsoConfig, device: torch.device, gen_model: nn.Module,
+                     assessor: nn.Module, class_idxs, stack: int | None = None, rng=None,
+                     init_state: SwarmState | None = None, r1=None, r2=None) -> tuple:
+    """A discovery runner's (classes [B], init_state, r1, r2) on `device`,
+    B = stack·C: the models checked to live there, the draws not given
+    drawn from `rng`."""
+    _on_device(gen_model, device, "gen_model")
+    _on_device(assessor, device, "assessor")
+    classes = torch.as_tensor(class_idxs, dtype=torch.long, device=device).reshape(-1)
+    if stack:
+        classes = classes.repeat(stack)
+    b = classes.numel()
+    if (init_state is None or r1 is None or r2 is None) and rng is None:
+        raise ValueError("pass rng, or init_state, r1 and r2")
+    if init_state is None:
+        init_state = swarm_init(rng, b, hp.n_particles, hp.dim_space, hp.w_inertia, device)
+    if r1 is None or r2 is None:
+        r1, r2 = draw_uniforms(rng, hp.n_iterations, b, hp.n_particles, device)
+    return classes, init_state, r1.to(device), r2.to(device)
+
+
+def discovery_fitness(gen: nn.Module, cnn: nn.Module, classes: torch.Tensor, n: int,
+                      control: str, threshold: float, eps: float,
+                      dtype: torch.dtype | None = None, chunk: int | None = None):
+    """fitness(positions [B, n, d]) → [B, n], swarm b scored for class
+    classes[b]: one generator and one assessor forward over all B·n
+    particles, or one per `chunk` particles of each swarm."""
+    b = classes.numel()
+    k = chunk or n
+    row_classes = classes.repeat_interleave(k)  # [B·k], swarm-major
+
+    def fitness_rows(positions):  # [B, k, d] → [B, k]
+        vals = apply_discovery_fitness(
+            positions.reshape(b * k, -1), gen, cnn, row_classes,
+            control=control, threshold=threshold, eps=eps, dtype=dtype)
+        return vals.reshape(b, k)
+
+    def fitness(positions):
+        if chunk is None:
+            return fitness_rows(positions)
+        return torch.cat([fitness_rows(p.contiguous())
+                          for p in positions.split(chunk, dim=1)], dim=1)
+
+    return fitness
 
 
 def make_discovery_runner(

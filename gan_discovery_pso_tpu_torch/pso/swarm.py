@@ -133,30 +133,50 @@ def mean_pairwise_distance(positions: torch.Tensor) -> torch.Tensor:
     return (torch.sqrt(d2) * mask).sum(dim=(1, 2)) / (n * (n - 1))
 
 
-def pso_iteration(state: SwarmState, fitness: torch.Tensor, r1: torch.Tensor,
-                  r2: torch.Tensor, hp: PsoConfig) -> SwarmState:
-    """One PSO update of B swarms given the fitness [B, N] at the current
-    positions; r1, r2 [B, N]. The update chain is the fused kernel
-    (`ops/kernels/swarm_update.py`); inertia and early stop stay here."""
+def inertia(state: SwarmState, hp: PsoConfig) -> torch.Tensor:
+    """This iteration's w [B]: 0.99·w from iteration 2 when scheduled."""
     w = state.w_inertia
     if hp.schedule_inertia:
         w = torch.where(state.iteration > 1, 0.99 * w, w)
-    up = swarm_update(
-        state.positions, state.velocities, state.p_best_pos, state.p_best_val,
-        fitness, r1, r2, state.g_best_pos, state.g_best_val, state.g_prev_val,
-        w, hp.w_cognitive, hp.w_social)
+    return w
+
+
+def advance(state: SwarmState, up, p_best_pos: torch.Tensor, p_best_val: torch.Tensor,
+            w: torch.Tensor, hp: PsoConfig) -> SwarmState:
+    """The state after an update `up` (positions, velocities and the g-best
+    fields, with `g_appended`): the improvement count, the iteration and the
+    early-stop latch, whose operands are all per swarm."""
     g_improvements = state.g_improvements + up.g_appended.to(torch.int32)
     done = state.done
     if hp.early_stopping:
         tol_hit = torch.abs(up.g_best_val - up.g_prev_val) < hp.tolerance
         done = done | ((state.iteration > 2) & (g_improvements > 2) & tol_hit)
-    return SwarmState(up.positions, up.velocities, up.p_best_pos, up.p_best_val,
+    return SwarmState(up.positions, up.velocities, p_best_pos, p_best_val,
                       up.g_best_pos, up.g_best_val, up.g_prev_val,
                       g_improvements, w, state.iteration + 1, done)
 
 
+def pso_iteration(state: SwarmState, fitness: torch.Tensor, r1: torch.Tensor,
+                  r2: torch.Tensor, hp: PsoConfig) -> SwarmState:
+    """One PSO update of B swarms given the fitness [B, N] at the current
+    positions; r1, r2 [B, N]. The update chain is the fused kernel
+    (`ops/kernels/swarm_update.py`); inertia and early stop stay here."""
+    w = inertia(state, hp)
+    up = swarm_update(
+        state.positions, state.velocities, state.p_best_pos, state.p_best_val,
+        fitness, r1, r2, state.g_best_pos, state.g_best_val, state.g_prev_val,
+        w, hp.w_cognitive, hp.w_social)
+    return advance(state, up, up.p_best_pos, up.p_best_val, w, hp)
+
+
 def _freeze(done: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     return torch.where(done.view(-1, *([1] * (new.dim() - 1))), old, new)
+
+
+def freeze(done: torch.Tensor, old: SwarmState, new: SwarmState) -> SwarmState:
+    """`new`, but `old` for the swarms already done (the reference breaks
+    out of its loop)."""
+    return SwarmState(*(_freeze(done, o, n) for o, n in zip(old, new)))
 
 
 def optimize(
@@ -181,9 +201,8 @@ def optimize(
         new = pso_iteration(state, fitness, r1[it], r2[it], hp)
         dummy = torch.amin(new.p_best_val, dim=1)
         mmse = mean_pairwise_distance(new.positions)
-        # once done, the state freezes (the reference breaks out of its loop)
         done = state.done
-        state = SwarmState(*(_freeze(done, o, n) for o, n in zip(state, new)))
+        state = freeze(done, state, new)
         records.append((
             state.positions, state.velocities, fitness,
             torch.where(done, torch.nan, mmse), state.g_best_val,

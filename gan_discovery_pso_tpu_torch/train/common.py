@@ -21,6 +21,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -84,9 +85,19 @@ def frozen(*modules: nn.Module):
             p.requires_grad_(flag)
 
 
-def optimizer_step(optimizer: torch.optim.Optimizer, params: list, loss: torch.Tensor) -> None:
+def optimizer_step(optimizer: torch.optim.Optimizer, params: list, loss: torch.Tensor,
+                   group=None) -> None:
     """One optimizer step on d loss / d params, computed for params only
-    (`torch.autograd.grad`), so no other tensor's `.grad` changes."""
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+    (`torch.autograd.grad`), so no other tensor's `.grad` changes. With a
+    process group, `loss` is each rank's mean over its equal share of the
+    batch, and the gradients are averaged over the group in one all-reduce:
+    those of the mean over the whole batch."""
+    grads = torch.autograd.grad(loss, params)
+    if group is not None:
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat = flat / dist.get_world_size(group)
+        grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+    for p, g in zip(params, grads):
         p.grad = g
     optimizer.step()

@@ -25,6 +25,16 @@ torch cannot replay threefry: a step takes its draws as a tensor triple
 (noise [B, z, 1, 1], ỹ₁ [B], ỹ₀ [B]) or a `torch.Generator`, from which it
 draws the noise, then the positives, then the negatives.
 
+Data parallel (`group=`, a `torch.distributed` process group of W ranks):
+each rank takes its 1/W of the global batch and of the draws, G's
+train-mode BN takes its statistics over the global batch
+(`ops.norm.sync_batch_norm`), and each step's gradients are all-reduced
+into those of the global-batch mean loss, so every rank applies the same
+update and reports the global losses. The state is broadcast from the
+group's first rank when the step is made. This is the JAX package's step
+under a data mesh (`tests/test_parallel.py:93`), which no stage of either
+package runs.
+
 `make_gan_train_scan_step` (:160, K steps as one XLA program) is not
 ported: K calls of the step are the same computation, and the JAX package's
 own test holds the two equal (`tests/test_train.py:456`).
@@ -42,6 +52,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from gan_discovery_pso_tpu_torch.compat.weights import (
@@ -57,6 +68,7 @@ from gan_discovery_pso_tpu_torch.models.dcgan import (
 )
 from gan_discovery_pso_tpu_torch.models.layers import dcgan_init_
 from gan_discovery_pso_tpu_torch.ops.kernels import rescale01_per_sample
+from gan_discovery_pso_tpu_torch.ops.norm import sync_batch_norm
 from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
 from gan_discovery_pso_tpu_torch.train.common import (
     bce_from_logits,
@@ -110,29 +122,61 @@ def _draws(draw, bs: int, z_dim: int, real: torch.Tensor, label_smoothing: bool)
             smooth_negative(draw, (bs,), device))
 
 
-def make_gan_train_step(state: GanTrainState, label_smoothing: bool = True):
+def make_gan_train_step(state: GanTrainState, label_smoothing: bool = True, group=None):
     """train_step(real [B, C, H, W], draw) → {'loss_gen', 'loss_disc'}, 0-d
     tensors on the device, one step of G and D in `state` (see the module
     docstring); `state.step` counts the steps. Without label smoothing the
-    targets are 1 and 0 (a generator then draws the noise alone)."""
+    targets are 1 and 0 (a generator then draws the noise alone).
+
+    With a process group, `real` and the draws are the GLOBAL batch's
+    (every rank passes the same, or the same generator seed) and each rank
+    steps on its slice."""
     gen, disc = state.gen, state.disc
     g_params, d_params = list(gen.parameters()), list(disc.parameters())
     z_dim = gen.gen[0][0].in_channels
+    if group is not None:
+        _broadcast_modules((gen, disc), group)
 
     def train_step(real: torch.Tensor, draw) -> dict:
         noise, y_real, y_fake = _draws(draw, real.shape[0], z_dim, real, label_smoothing)
+        if group is not None:
+            real, noise, y_real, y_fake = _rank_slice((real, noise, y_real, y_fake), group)
         gen.train()
-        fake = gen(noise)
+        with sync_batch_norm(group):
+            fake = gen(noise)
         loss_d = (bce_from_logits(disc.logits(real), y_real)
                   + bce_from_logits(disc.logits(fake.detach()), y_fake)) / 2.0
-        optimizer_step(state.opt_d, d_params, loss_d)
+        optimizer_step(state.opt_d, d_params, loss_d, group)
         with frozen(disc):
             loss_g = bce_from_logits(disc.logits(fake), y_real)
-            optimizer_step(state.opt_g, g_params, loss_g)
+            optimizer_step(state.opt_g, g_params, loss_g, group)
         state.step += 1
-        return {"loss_gen": loss_g.detach(), "loss_disc": loss_d.detach()}
+        losses = torch.stack([loss_g.detach(), loss_d.detach()])
+        if group is not None:
+            dist.all_reduce(losses, group=group)
+            losses = losses / dist.get_world_size(group)
+        return {"loss_gen": losses[0], "loss_disc": losses[1]}
 
     return train_step
+
+
+def _broadcast_modules(modules, group) -> None:
+    """Every parameter and buffer from the group's first rank."""
+    src = dist.get_global_rank(group, 0)
+    with torch.no_grad():
+        for m in modules:
+            for t in (*m.parameters(), *m.buffers()):
+                dist.broadcast(t, src=src, group=group)
+
+
+def _rank_slice(tensors, group) -> tuple:
+    """This rank's 1/W of each tensor's leading (batch) axis."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n = tensors[0].shape[0]
+    if n % world:
+        raise ValueError(f"a global batch of {n} over {world} ranks")
+    k = n // world
+    return tuple(t[rank * k:(rank + 1) * k] for t in tensors)
 
 
 def make_sampler(gen: nn.Module) -> Callable[..., torch.Tensor]:

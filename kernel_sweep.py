@@ -11,8 +11,9 @@ a thread and its spill stores and loads in bytes. Then, for each kernel, it
 launches the wrapper with geometries other than the one the wrapper's
 helper picks (the wrappers' geometry override), checks each launch against
 the plain version, and prints one JSON line per (shape, geometry) with the
-device µs per launch from the profiler (chip_smoke.device_us), inputs
-cycled past the L2 at the large shapes:
+device µs per launch from the profiler (chip_smoke.device_us; null where
+every session lost its kernel events), inputs cycled past the L2 at the
+large shapes:
 
 - rescale01_rows at [256, 784], [1024, 784], [4096, 784]: warps per row
   (team 8, 4, 2, 1) and, for a team of one, rows per CTA (1, 2, 4, 8);

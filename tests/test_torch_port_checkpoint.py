@@ -344,9 +344,20 @@ def test_cli_refuses_fast_math_on_gradient_stages(stage, capsys, tmp_path):
     assert not (tmp_path / "reports").exists()
 
 
-def test_cli_refuses_shard_swarm(capsys):
-    assert cli_main(["pso-discovery", "--shard-swarm", "4"]) != 0
-    assert "ROADMAP A16" in capsys.readouterr().err
+def test_cli_refuses_shard_swarm(capsys, tmp_path):
+    """--shard-swarm runs (tests/test_torch_port_parallel.py); with
+    --batch-classes it exits 2 with the JAX stage's message
+    (pipelines/pso_discovery.py:70-71), and so does a count below one
+    rank, both before a run dir or a rank is made."""
+    roots = [f"data.{k}_dir={tmp_path / k}" for k in ("reports", "model", "interim")]
+    assert cli_main(["pso-discovery", "--device", "cpu", "--shard-swarm", "4",
+                     "--batch-classes", "--set", *roots]) == 2
+    assert ("batch_classes and shard_devices are mutually exclusive"
+            in capsys.readouterr().err)
+    assert cli_main(["pso-discovery", "--device", "cpu", "--shard-swarm", "0",
+                     "--set", *roots]) == 2
+    assert "needs at least one rank" in capsys.readouterr().err
+    assert not (tmp_path / "reports").exists()
 
 
 def test_cli_refuses_limit(capsys, tmp_path):
