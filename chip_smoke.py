@@ -59,20 +59,30 @@ inverter phase's 256 OoD latents overlaid, and on the dimension-2 run;
 the 128 slices; PCA, the labels, UMAP's graph and 10 layout epochs, the
 distances, the resize, the stack and the augmentation on the card against
 the CPU; no port kernel on these paths), runs the parallel paths (the
-parallel phase, run last, after the timings below and every profiler
-session: `pso-discovery --shard-swarm 2`, whose two ranks the
-CLI starts on the one card over gloo, each class's swarm split 16 + 16 and
+parallel phase, after the timings below and every profiler session:
+`pso-discovery --shard-swarm 2`, whose two ranks the CLI starts on the
+one card over gloo under this process's GPU lease, each class's swarm
+split 16 + 16 and
 moved by B1's split halves around the global-best all-reduces, within
 rtol 1e-4 of the sequential run; the batched sharded runner at world 1
 under NCCL, bit-equal to the batched runner; 4 ranks running the 2 x 2
 class x swarm runner against the batched runner and the data-parallel GAN
 step at the shipped widths against the one-process step; the split halves
 are held bit-equal to their plain versions, shard by shard and together
-against the fused plain version, before the main path runs), then times
-each kernel at the main path's shape and at a large one (device µs per
-launch from the profiler over the last 50 of 80 calls in a session, as
-the profiler loses the kernel events of a session's first calls; beside
-the bound), and prints:
+against the fused plain version, before the main path runs), then the
+remainder phase, last (`export-model fitness` and `generator` loaded
+again and held to the runner, one B2 launch a fitness call through B2's
+registered operator, itself bit-equal to the plain version; `sweep
+--latent-dims 10` with a dcgan and a sequential pso-discovery leg, and one
+patient x both controls of pso-inverter, every leg under the GPU lease
+with its launches counted; `export-torch` then `convert-torch` of the
+card-trained G, bit-equal; a `core.trace` file naming B1 and B2; the GAN
+step's 30-step loss-trajectory gate under TF32 and the bf16 step; reduced
+`--fast-math` runs of five training stages beside their fp32-parity
+runs), timing each kernel at the main path's shape and at a large one
+before the parallel phase (device µs per launch from the profiler over
+the last 50 of 80 calls in a session, as the profiler loses the kernel
+events of a session's first calls; beside the bound), and prints:
 
     card: <nvidia-smi name, power limit>
     ... progress lines ...
@@ -2656,12 +2666,14 @@ def parallel_phase(models, device, kernels, card: str, seq_g_best: dict) -> dict
       256), then the data-parallel GAN step (z 10, f 64, batch 128) on each
       swarm-axis pair against the one-process step (`check_dp_step`).
     Returns each run's launches."""
+    import os
     import shutil
 
     import torch
     import torch.distributed as dist
 
-    from gan_discovery_pso_tpu_torch.core import PsoConfig, load_config
+    import gan_discovery_pso_tpu_torch.parallel.launch as launch_module
+    from gan_discovery_pso_tpu_torch.core import PsoConfig, gpulock, load_config
     from gan_discovery_pso_tpu_torch.core.config import DataConfig
     from gan_discovery_pso_tpu_torch.parallel import (
         distributed_initialize_if_needed, make_batched_sharded_discovery_runner, make_mesh)
@@ -2676,15 +2688,30 @@ def parallel_phase(models, device, kernels, card: str, seq_g_best: dict) -> dict
     iters = int(cfg.trainer_pso.n_iterations)
     out = {}
 
-    # 1. the sharded stage through the CLI
+    # 1. the sharded stage through the CLI, which starts its ranks under this
+    # process's GPU lease (they inherit it, core/gpulock.py)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_par_"))
+    holders = []
+    real_spawn = launch_module.spawn
+
+    def spawning(*a, **kw):
+        holders.append(gpulock.current_holder())
+        return real_spawn(*a, **kw)
+
+    launch_module.spawn = spawning
     try:
         dirs = write_checkpoints(tmp / "upstream", 1, *models)
         run = run_cli(tmp, "sharded", dirs, device, kernels, "--shard-swarm", str(SHARDS),
                       sets=sets100)
         check_artifacts(run, classes, DIM, iters)
     finally:
+        launch_module.spawn = real_spawn
         shutil.rmtree(tmp, ignore_errors=True)
+    if len(holders) != 1 or not holders[0] or holders[0]["pid"] != os.getpid():
+        raise AssertionError(f"sharded: the ranks started under the lease of {holders}, not "
+                             "this process's")
+    if gpulock.current_holder() is not None:
+        raise AssertionError(f"sharded: the lease is still held: {gpulock.current_holder()}")
     text = run["log"]
     backend = re.findall(r"\] (\d+) ranks, backend (\w+): (.*)", text)[-1]
     if backend[1] != "gloo" or backend[2] != ", ".join(
@@ -2709,7 +2736,8 @@ def parallel_phase(models, device, kernels, card: str, seq_g_best: dict) -> dict
         f"{up_s:.6f} s, runner wall of {len(classes)} classes {class_walls[-1]:.6f} s, "
         f"collectives {collective_s} s per rank ({100 * max(collective_s) / class_walls[-1]:.1f} "
         f"% of the runner), artifacts {run['artifact_s']:.6f} s; g_best within {rel:.3e} "
-        f"(rtol) of the sequential run; launches per rank {per_rank} ({card})")
+        f"(rtol) of the sequential run; launches per rank {per_rank}; ranks started under "
+        f"the GPU lease of this process ({holders[0]['holder']}) ({card})")
     out["sharded (rank 0)"] = {k: per_rank[0][k] for k in want}
 
     # 2. world 1 under NCCL in this process: bit-equal to the fused runner
@@ -2809,6 +2837,490 @@ def parallel_phase(models, device, kernels, card: str, seq_g_best: dict) -> dict
     return out
 
 
+EXPORT_BATCH = N_CLASSES * N_PARTICLES  # the exported fitness's batch: the main path's images
+GATE_STEPS = 30  # bench.py's GAN loss-trajectory gate (bench.py:515-522)
+TRAIN_GATE = 0.25  # mean |loss - loss_fp32| over the GATE_STEPS steps, either loss
+REDUCED_LIMIT = "2048"  # images a dataset of the reduced --fast-math runs holds
+
+
+def run_sweep(kernels, argv: list) -> list:
+    """`cli.main(["sweep", ...])` in this process, each leg run by a
+    stand-in for `cli.main.dispatch` with the launch counts zeroed just
+    before it and read just after: each leg's stage, overrides, wall and
+    launches. The GPU lease must be held by this process's sweep during
+    every leg and released after."""
+    import os
+
+    import torch
+
+    import gan_discovery_pso_tpu_torch.cli.main as cli_module
+    from gan_discovery_pso_tpu_torch.core import gpulock
+
+    legs = []
+    real = cli_module.dispatch
+
+    def counting(args, *rest):
+        if args.stage == "sweep":
+            return real(args, *rest)
+        holder = gpulock.current_holder()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        rc = real(args, *rest)
+        torch.cuda.synchronize()
+        legs.append({"stage": args.stage, "set": list(args.set[-3:]),
+                     "ood_patient": args.ood_patient, "wall_s": time.perf_counter() - t0,
+                     "launches": {k.__name__: k.launches for k in kernels}, "holder": holder})
+        return rc
+
+    cli_module.dispatch = counting
+    try:
+        rc = cli_module.main(argv)
+    finally:
+        cli_module.dispatch = real
+    if rc != 0:
+        raise AssertionError(f"sweep {argv}: the CLI returned {rc}")
+    for leg in legs:
+        holder = leg.pop("holder")
+        if not holder or holder["pid"] != os.getpid() or holder["holder"] != "cli:sweep":
+            raise AssertionError(f"sweep leg {leg['stage']}: the GPU lease is held by "
+                                 f"{holder}, not this process's sweep")
+    if gpulock.current_holder() is not None:
+        raise AssertionError(f"the GPU lease is still held after the sweep: "
+                             f"{gpulock.current_holder()}")
+    return legs
+
+
+def export_checks(models, device, kernels, card: str, tmp: Path, dirs: dict) -> tuple:
+    """`export-model generator` and `fitness` through the CLI on JAX-format
+    checkpoints of the main path's models (z 100, G(64), ResNet-50 over the
+    8 IiD classes, batch EXPORT_BATCH), loaded again in this process on the
+    card: each within rtol 1e-5 of the runner's fitness and of G (bit-equal
+    expected in fp32 parity; the largest gap is reported), one B2 launch
+    per call of the fitness artifact and no B1; B2's registered operator
+    bit-equal to its plain version at [EXPORT_BATCH, 784] in fp32 and bf16;
+    the trace and save seconds, and per-call ms of artifact and runner in
+    turns. Returns (report, launches of one artifact call)."""
+    import torch
+
+    import gan_discovery_pso_tpu_torch.cli.main as cli_module
+    from gan_discovery_pso_tpu_torch.compat.export import load_exported
+    from gan_discovery_pso_tpu_torch.core import load_config
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.ops.kernels import rescale01_rows_op, rescale01_rows_plain
+    from gan_discovery_pso_tpu_torch.pso import make_discovery_fitness_dynamic
+
+    classes = sorted(DataConfig.from_config(load_config(CFG).data).iid_classes)
+    label = classes[3]
+    seconds = {"trace_s": [], "save_s": []}
+    real = {"export": torch.export.export, "save": torch.export.save}
+
+    def timed_call(name, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            seconds[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    paths, walls = {}, {}
+    torch.export.export, torch.export.save = (timed_call("export", "trace_s"),
+                                              timed_call("save", "save_s"))
+    try:
+        for what in ("generator", "fitness"):
+            paths[what] = tmp / "export" / f"{what}.pt2"
+            t0 = time.perf_counter()
+            rc = cli_module.main([
+                "export-model", what, str(paths[what]), "--cfg", str(CFG), "--device",
+                str(device), "--path-gan", str(dirs["gan"]), "--path-cnn", str(dirs["cnn"]),
+                "--batch", str(EXPORT_BATCH), "--class-label", str(label), "--set",
+                f"trainer_gan.z_dim={DIM}", f"trainer_pso.dim_space={DIM}"])
+            walls[what] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"export-model {what}: the CLI returned {rc}")
+    finally:
+        torch.export.export, torch.export.save = real["export"], real["save"]
+
+    rng = torch.Generator(device=device).manual_seed(SEED + 40)
+    pos = torch.randn((EXPORT_BATCH, DIM), generator=rng, device=device)
+    z = torch.randn((EXPORT_BATCH, DIM, 1, 1), generator=rng, device=device)
+    t0 = time.perf_counter()
+    fit_art = load_exported(paths["fitness"], device=device)
+    gen_art = load_exported(paths["generator"], device=device)
+    load_s = time.perf_counter() - t0
+    graph_ops = [n.target for n in fit_art.program.graph.nodes if n.op == "call_function"]
+    if graph_ops.count(torch.ops.gdpt.rescale01_rows.default) != 1:
+        raise AssertionError("fitness artifact: gdpt::rescale01_rows is not one node of the graph")
+    runner = make_discovery_fitness_dynamic(*models, eps=EPS)
+    idx = classes.index(label)
+    want = runner(pos, idx)
+    zero_counts(kernels)
+    got = fit_art.call(pos)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    if launches != {k: int(k == "rescale01_rows") for k in launches}:
+        raise AssertionError(f"fitness artifact: one call launched {launches}, not B2 once")
+    with fp32_parity(), torch.no_grad():
+        g_want = models[0](z)
+    g_got = gen_art.call(z)
+    report = {"trace_s": seconds["trace_s"], "save_s": seconds["save_s"],
+              "export_model_wall_s": walls, "load_s": load_s,
+              "artifact_bytes": {k: p.stat().st_size for k, p in paths.items()}}
+    for what, a, b in (("fitness", got, want), ("generator", g_got, g_want)):
+        gap = float((a.float() - b.float()).abs().max())
+        if a.shape != b.shape or not torch.allclose(a, b, rtol=1e-5, atol=0):
+            raise AssertionError(f"{what} artifact vs the runner: max |diff| {gap}")
+        report[what] = {"bit_equal": bool(torch.equal(a, b)), "max_abs_gap": gap}
+    # B2 through the operator, against its plain version
+    imgs = g_want.reshape(EXPORT_BATCH, -1).contiguous()
+    for out_bf16 in (False, True):
+        dtype = torch.bfloat16 if out_bf16 else torch.float32
+        bits_equal(rescale01_rows_op(imgs, out_bf16), rescale01_rows_plain(imgs, dtype))
+    report["op_bit_equal_to_plain"] = [EXPORT_BATCH, imgs.shape[1]]
+    ms, runner_ms = in_turns(lambda: fit_art.call(pos), lambda: runner(pos, idx))
+    report["fitness_ms_per_call"] = {"artifact": ms, "runner": runner_ms, "batch": EXPORT_BATCH}
+    log(f"export-model ({card}): " + json.dumps(report))
+    return report, launches
+
+
+def round_trip_torch(dcgan_models: Path, tmp: Path) -> dict:
+    """`export-torch` of a card-trained best_g to the reference's `.tar`,
+    then `convert-torch` of that back: every tensor of G bit-equal to the
+    checkpoint's, and the `.tar` loads into a Generator strictly."""
+    import numpy as np
+    import torch
+
+    import gan_discovery_pso_tpu_torch.cli.main as cli_module
+    from gan_discovery_pso_tpu_torch.compat import load_reference_checkpoint
+    from gan_discovery_pso_tpu_torch.core.checkpoint import load_pytree, restore_tree
+    from gan_discovery_pso_tpu_torch.models import Generator, GeneratorDef
+
+    best = dcgan_models / "best_g.msgpack"
+    tar, back = tmp / "round_trip" / "best_g.tar", tmp / "round_trip" / "best_g.msgpack"
+    for argv in (["export-torch", str(best), "generator", str(tar)],
+                 ["convert-torch", str(tar), "generator", str(back)]):
+        if cli_module.main(argv) != 0:
+            raise AssertionError(f"{argv[0]} returned non-zero")
+    orig = restore_tree(load_pytree(best))
+    conv = restore_tree(load_pytree(back))
+    pairs = ((orig["state"]["gen_params"], conv["params"]),
+             (orig["state"]["gen_state"], conv["state"]))
+    n = 0
+
+    def same(a, b, path=""):
+        nonlocal n
+        if isinstance(a, dict):
+            if a.keys() != b.keys():
+                raise AssertionError(f"round trip: keys of {path} differ")
+            for k in a:
+                same(a[k], b[k], f"{path}.{k}")
+            return
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"round trip: {path} differs")
+        n += 1
+
+    for a, b in pairs:
+        same(a, b)
+    sd = load_reference_checkpoint(tar)
+    z_dim, f2 = sd["gen.0.0.weight"].shape[:2]
+    Generator(GeneratorDef(z_dim, 1, f2 // 2)).load_state_dict(sd, strict=True)
+    epoch = torch.load(tar, weights_only=True)["epoch"]
+    return {"tensors_bit_equal": n, "tar_epoch": epoch, "z_dim": int(z_dim)}
+
+
+def trace_check(models, device, kernels, tmp: Path) -> dict:
+    """`core.trace` around one main-path run: the Chrome trace it writes
+    names B1's and B2's kernels (those of `kernels`)."""
+    from gan_discovery_pso_tpu_torch.core import trace
+
+    names = [k.__name__ for k in kernels]
+
+    with trace(tmp / "trace"):
+        drive_main_path(models, device, None, kernels)
+    files = list((tmp / "trace").glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace: {len(files)} trace files")
+    text = files[0].read_text()
+    found = {name: sum(text.count(k) for k in KERNEL_NAMES[name])
+             for name in ("swarm_update", "rescale01_rows") if name in names}
+    if '"traceEvents"' not in text or not all(found.values()):
+        raise AssertionError(f"trace: kernel names missing from the trace: {found}")
+    return {"file_bytes": files[0].stat().st_size, "kernel_name_hits": found}
+
+
+def gan_step_gate(device, data: dict) -> dict:
+    """bench.py's GAN gate (bench.py:505-522) on the port: GATE_STEPS steps
+    at the shipped widths (z 10, f 64, batch 128) from one seeded state, one
+    batch of the synthetic digits and the same draws, under fp32 parity,
+    under `tf32_math()` and with `compute_dtype=torch.bfloat16`: mean
+    |loss - loss_fp32| over the steps, each loss, at most TRAIN_GATE for
+    TF32 and bf16; then 5 steady steps of each profiled (wall ms, device
+    idle share)."""
+    import copy
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import AdamConfig, load_config
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+    from gan_discovery_pso_tpu_torch.data import epoch_batches, load_mnist
+    from gan_discovery_pso_tpu_torch.models import DiscriminatorDef, GeneratorDef
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity, tf32_math
+    from gan_discovery_pso_tpu_torch.train.common import make_optimizer
+    from gan_discovery_pso_tpu_torch.train.dcgan import (
+        GanTrainState, gan_init, make_gan_train_step)
+
+    cfg = load_config(CFG, overrides=data)
+    data_cfg = DataConfig.from_config(cfg.data)
+    bs = int(cfg.trainer_gan.batch_size)
+    adam = AdamConfig.from_config(cfg.trainer_gan.optimizer)
+    base = gan_init(torch.Generator().manual_seed(SEED + 50),
+                    GeneratorDef(int(cfg.trainer_gan.z_dim), 1,
+                                 int(cfg.model_gan.network.units_gen)),
+                    DiscriminatorDef(1, int(cfg.model_gan.network.units_disc)), adam,
+                    device=device)
+    ds = load_mnist(data["data.data_dir"], "train", classes=data_cfg.iid_classes,
+                    drange=(-1, 1), device=device)
+    batches = [x for x, _y in itertools.islice(
+        epoch_batches(ds, bs, torch.Generator().manual_seed(SEED)), 7)]
+    real = batches[0]
+    modes = {"fp32": (None, fp32_parity), "tf32": (None, tf32_math),
+             "bf16": (torch.bfloat16, fp32_parity)}
+
+    def fresh(dtype):
+        g, d = copy.deepcopy(base.gen), copy.deepcopy(base.disc)
+        st = GanTrainState(g, d, make_optimizer(adam, list(g.parameters())),
+                           make_optimizer(adam, list(d.parameters())))
+        return make_gan_train_step(st, compute_dtype=dtype)
+
+    traj, prof = {}, {}
+    for mode, (dtype, precision) in modes.items():
+        step, rows = fresh(dtype), []
+        with precision():
+            for i in range(GATE_STEPS):
+                m = step(real, torch.Generator(device=device).manual_seed(SEED + 60 + i))
+                rows.append(torch.stack([m["loss_gen"], m["loss_disc"]]))
+        traj[mode] = torch.stack(rows).cpu().numpy()
+        if not np.isfinite(traj[mode]).all():
+            raise AssertionError(f"GAN gate: {mode} losses not finite")
+        rng = torch.Generator(device=device).manual_seed(SEED + 22)
+        with precision():
+            prof[mode] = profile_steps(fresh(dtype), [(x, rng) for x in batches])
+    gate = {mode: [float(v) for v in np.abs(traj[mode] - traj["fp32"]).mean(axis=0)]
+            for mode in ("tf32", "bf16")}
+    for mode, diffs in gate.items():
+        if max(diffs) > TRAIN_GATE:
+            raise AssertionError(f"GAN gate: {mode} mean |loss - loss_fp32| {diffs} > "
+                                 f"{TRAIN_GATE}")
+    return {"mean_abs_loss_diff_gen_disc": gate, "gate": TRAIN_GATE, "steps": GATE_STEPS,
+            "final_losses": {m: [float(v) for v in t[-1]] for m, t in traj.items()},
+            "profiled_steps": {m: {k: p[k] for k in ("wall_ms_per_step", "device_busy_ms",
+                                                     "device_idle_share") if k in p}
+                               for m, p in prof.items()}}
+
+
+def first_losses(run: dict) -> dict:
+    """Each loss series of the stage's overall_history.pkl: its first value
+    and its last (all of them finite)."""
+    import numpy as np
+
+    with open(run["reports"] / "general" / "overall_history.pkl", "rb") as f:
+        history = pickle.load(f)
+    out = {}
+    for key, values in history.items():
+        if isinstance(values, dict) or "loss" not in key:
+            continue
+        arr = np.asarray(values, dtype=np.float64).ravel()
+        if arr.size == 0:
+            continue
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"{run['label']}: {key} not finite")
+        out[key] = [float(arr[0]), float(arr[-1])]
+    return out
+
+
+def fast_math_runs(device, kernels, card: str, tmp: Path, dirs: dict, pso_interim: Path,
+                   data: dict) -> dict:
+    """One reduced run (1 epoch, --limit REDUCED_LIMIT) of cae, cnn-multipatient,
+    inverter (pix_rec), regularize-inverter (on that inverter's encoder) and
+    vqvae (G z 100 as the decoder, the pipeline phase's particles as the
+    codebook) in fp32 parity and under --fast-math: finite losses, no port
+    kernel launched, checkpoints that load and run in fp32 parity, the first
+    (and last) values of each loss series side by side, the stage's wall.
+    No limit is set on the gap, as the JAX package sets none."""
+    import numpy as np
+    import torch
+
+    from gan_discovery_pso_tpu_torch.core import load_config
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+    from gan_discovery_pso_tpu_torch.data import load_mnist
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.pipelines import (
+        load_cae, load_cnn, load_encoder, load_gan, load_vqvae)
+
+    classes = list(DataConfig.from_config(load_config(CFG, overrides=data).data).iid_classes)
+    x = load_mnist(data["data.data_dir"], "test", classes=classes, drange=(-1, 1),
+                   device=device).images[:64]
+    x01 = (x + 1) / 2
+    vq_sets = {"data.iid_classes": classes, "data.ood_classes": [1, 5]}
+    vq_cfg = load_config(VQ_CFG, overrides={**data, **vq_sets})
+    gen100 = load_gan(dirs["gan"], device=device)
+    report = {}
+    for mode, flags in (("fp32_parity", ()), ("fast_math", ("--fast-math",))):
+        def stage(name, *args, keep=None, cfg=CFG, **extra):
+            run = cli_stage(tmp, f"{name}_{mode}", name, device, kernels, *flags, "--epochs",
+                            "1", "--limit", REDUCED_LIMIT, *args, sets={**data, **extra},
+                            keep=keep, cfg=cfg)
+            if any(run["launches"].values()):
+                raise AssertionError(f"{name} ({mode}): launches {run['launches']}; no port "
+                                     "kernel is on this stage's path")
+            run["label"] = f"{name} ({mode})"
+            report.setdefault(name, {})[mode] = {"stage_s": run["wall"],
+                                                 "losses_first_last": first_losses(run)}
+            return run
+
+        cae = stage("cae")
+        multi = stage("cnn-multipatient", keep="run_cnn_multipatient")
+        inv = stage("inverter", "--path-gan", str(dirs["gan"]), **{
+            "trainer_gan.z_dim": DIM, "trainer_inverter.training_function": "pix_rec"})
+        reg = cli_stage(tmp, f"regularize-inverter_{mode}", "regularize-inverter", device,
+                        kernels, *flags, "--limit", REDUCED_LIMIT, "--path-gan",
+                        str(dirs["gan"]), "--path-inverter", str(inv["model"]),
+                        sets={**data, "trainer_gan.z_dim": DIM})
+        reg["label"] = f"regularize-inverter ({mode})"
+        report["regularize-inverter"] = {**report.get("regularize-inverter", {}), mode: {
+            "stage_s": reg["wall"], "losses_first_last": first_losses(reg)}}
+        vq = stage("vqvae", "--path-gan", str(dirs["gan"]), "--path-pso", str(pso_interim),
+                   cfg=VQ_CFG, **vq_sets)
+        # the checkpoints, loaded and run in fp32 parity
+        encoder, decoder = load_cae(cae["model"], device=device)
+        model, mdef = multi["value"]
+        with fp32_parity(), torch.no_grad():
+            outs = {"cae": decoder(encoder(x01)),
+                    "cnn-multipatient": load_cnn(multi["model"], mdef, device=device)(x01),
+                    "inverter": load_encoder(inv["model"], device=device)(x)}
+            with np.load(reg["interim"] / "inverted_z.npz") as f:
+                outs["regularize-inverter"] = gen100(torch.as_tensor(f["z"], device=device))
+            outs["vqvae"] = load_vqvae(vq["model"], vq_cfg, device=device).encoder(x, False)
+        for name, t in outs.items():
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name} ({mode}): the checkpoint's output in fp32 parity "
+                                     "is not finite")
+    log(f"--fast-math runs beside fp32 parity ({card}): " + json.dumps(report))
+    return report
+
+
+def remainder_phase(models, device, kernels, card: str, upstream: Path,
+                    pso_interim: Path, sets=()) -> dict:
+    """The CLI's remaining entry points and `--fast-math` for training, at
+    full width:
+    1. `export-model fitness` and `generator` (`export_checks`);
+    2. `sweep --latent-dims 10 --stages dcgan pso-discovery` (1 dcgan epoch
+       on the assessor phase's CAE and battery; pso-discovery sequential,
+       8 classes x 32 x 50, on the z-10 G the dcgan leg writes and the
+       seeded ResNet-50): B2 10 launches in the dcgan leg, B1 and B2 400
+       each in the pso-discovery leg; then the per-patient sweep of patient
+       1 x both controls (pso-inverter, 1 fine-tune epoch at --limit
+       REDUCED_LIMIT, 256 x 50): B1 and B2 50 each a leg; every leg under
+       this process's GPU lease (`run_sweep`);
+    3. `export-torch` then `convert-torch` of the dcgan leg's card-trained G
+       (`round_trip_torch`);
+    4. a `core.trace` file naming B1 and B2 (`trace_check`);
+    5. `--fast-math` for training (ROADMAP A18): the GAN loss-trajectory
+       gate under TF32 and bf16 (`gan_step_gate`) and the reduced
+       --fast-math runs (`fast_math_runs`).
+    Returns each run's launches. `sets` adds config overrides (a rehearsal on
+    the CPU cuts the data and the swarms)."""
+    import tempfile
+
+    from gan_discovery_pso_tpu_torch.core import load_config
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+
+    t_phase = time.perf_counter()
+    out, report = {}, {}
+    names = [k.__name__ for k in kernels]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rest_") as tmp_name:
+        tmp = Path(tmp_name)
+        dirs = write_checkpoints(tmp / "upstream", 1, *models)
+        _enc, dirs["inv"] = write_encoder(tmp / "upstream", 1, device)
+        data = {"data.data_dir": str(tmp / "no_mnist"), **dict(sets)}
+        cfg = load_config(CFG, overrides=data)
+        classes = DataConfig.from_config(cfg.data).iid_classes
+        iters = int(cfg.trainer_pso.n_iterations)
+        inv_iters = int(cfg.trainer_pso_inverter.n_iterations)
+        extra = [f"{k}={v}" for k, v in data.items()]
+
+        # 1. export-model
+        report["export"], out["export fitness (one artifact call)"] = export_checks(
+            models, device, kernels, card, tmp, dirs)
+
+        # 2. the sweeps
+        def roots(label):
+            return [*extra, *(f"data.{k}_dir={tmp / label / k}"
+                              for k in ("reports", "model", "interim"))]
+
+        def expected(**counts):
+            return {n: counts.get(n, 0) for n in names}
+
+        t0 = time.perf_counter()
+        legs = run_sweep(kernels, [
+            "sweep", "--cfg", str(CFG), "--device", str(device), "--latent-dims", "10",
+            "--stages", "dcgan", "pso-discovery", "--epochs", "1",
+            "--path-cae", str(upstream / "cae"), "--path-classifiers",
+            str(upstream / "classifiers"),
+            "--path-gan", str(tmp / "latent" / "model" / "mnist" / "00001--dcgan"),
+            "--path-cnn", str(dirs["cnn"]), "--set", *roots("latent")])
+        latent_s = time.perf_counter() - t0
+        n_eval = -(-int(cfg.trainer_gan.batch_size) * 100 // 1280)  # the sampler's chunks
+        want = {"dcgan": expected(rescale01_rows=n_eval),
+                "pso-discovery": expected(swarm_update=len(classes) * iters,
+                                          rescale01_rows=len(classes) * iters)}
+        if [leg["stage"] for leg in legs] != ["dcgan", "pso-discovery"]:
+            raise AssertionError(f"latent sweep legs {legs}")
+        for leg in legs:
+            if leg["launches"] != want[leg["stage"]]:
+                raise AssertionError(f"sweep leg {leg['stage']} (z 10): launches "
+                                     f"{leg['launches']}, not {want[leg['stage']]}")
+            out[f"sweep {leg['stage']} z10"] = leg["launches"]
+        t0 = time.perf_counter()
+        patient_legs = run_sweep(kernels, [
+            "sweep", "--cfg", str(CFG), "--device", str(device), "--patients", str(PATIENT),
+            "--epochs", "1", "--limit", REDUCED_LIMIT, "--path-gan", str(dirs["gan"]),
+            "--path-cnn", str(dirs["cnn"]), "--path-inverter", str(dirs["inv"]), "--set",
+            f"trainer_gan.z_dim={DIM}", *roots("patients")])
+        patient_s = time.perf_counter() - t0
+        controls = [leg["set"][-1].split("=")[1] for leg in patient_legs]
+        if controls != ["optimize_in_training", "optimize_out_training"]:
+            raise AssertionError(f"per-patient sweep legs {patient_legs}")
+        for leg, control in zip(patient_legs, controls):
+            want_inv = expected(swarm_update=inv_iters, rescale01_rows=inv_iters)
+            if leg["stage"] != "pso-inverter" or leg["launches"] != want_inv:
+                raise AssertionError(f"per-patient leg {leg}: not pso-inverter with {want_inv}")
+            out[f"sweep pso-inverter patient {PATIENT} {control}"] = leg["launches"]
+        report["sweep"] = {"latent_dim_10": {"wall_s": latent_s, "legs": legs},
+                           f"patient_{PATIENT}": {"wall_s": patient_s, "legs": patient_legs}}
+        log(f"sweeps ({card}): " + json.dumps(report["sweep"]))
+
+        # 3. the torch round trip of the card-trained G
+        report["torch_round_trip"] = round_trip_torch(
+            tmp / "latent" / "model" / "mnist" / "00001--dcgan", tmp)
+        log("convert-torch / export-torch: " + json.dumps(report["torch_round_trip"]))
+
+        # 4. a trace naming the kernels
+        report["trace"] = trace_check(models, device, kernels, tmp)
+        log("trace: " + json.dumps(report["trace"]))
+
+        # 5. --fast-math for training (ROADMAP A18)
+        report["gan_gate"] = gan_step_gate(device, data)
+        log(f"GAN loss-trajectory gate ({card}): " + json.dumps(report["gan_gate"]))
+        report["fast_math"] = fast_math_runs(device, kernels, card, tmp, dirs, pso_interim,
+                                             data)
+    log(f"remainder phase: {time.perf_counter() - t_phase:.6f} s ({card})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2888,23 +3400,26 @@ def main() -> int:
                                                  pso_interim))
         pipeline_launches.update(analysis_claro_phase(device, KERNELS, card, pso_interim,
                                                       dim2_interim, ood_interim))
-    prof = profile_main_path(models, device, KERNELS)
-    log("profile fp32 main path: " + json.dumps(prof))
-    log("profile bf16 main path: "
-        + json.dumps(profile_main_path(models, device, KERNELS, torch.bfloat16)))
-    diff = check_against_cpu(models, device, KERNELS)
-    log(f"small input: card path (kernels) agrees with the CPU path (plain) to {diff:.3e}")
-    # the standalone timings come after the main path's numbers, so that
-    # those are taken before this process has run any profiler session
-    time_kernel(swarm_rec, swarm_update, swarm_update_plain, swarm_to_time)
-    time_kernel(rescale_rec, rescale01_rows, rescale01_rows_plain, rescale_to_time)
-    time_kernel(split_recs[0], swarm_pbest_local, swarm_pbest_local_plain,
-                split_to_time["swarm_pbest_local"])
-    time_kernel(split_recs[1], swarm_move, swarm_move_plain, split_to_time["swarm_move"])
-    # the parallel phase after every profiler session: in a run where it came
-    # before them, three sessions of B1 each lost their first 15 kernel events
-    pipeline_launches.update(parallel_phase(models, device, (*KERNELS, *SPLIT_KERNELS), card,
-                                            seq_g_best))
+        prof = profile_main_path(models, device, KERNELS)
+        log("profile fp32 main path: " + json.dumps(prof))
+        log("profile bf16 main path: "
+            + json.dumps(profile_main_path(models, device, KERNELS, torch.bfloat16)))
+        diff = check_against_cpu(models, device, KERNELS)
+        log(f"small input: card path (kernels) agrees with the CPU path (plain) to {diff:.3e}")
+        # the standalone timings come after the main path's numbers, so that
+        # those are taken before this process has run any profiler session
+        time_kernel(swarm_rec, swarm_update, swarm_update_plain, swarm_to_time)
+        time_kernel(rescale_rec, rescale01_rows, rescale01_rows_plain, rescale_to_time)
+        time_kernel(split_recs[0], swarm_pbest_local, swarm_pbest_local_plain,
+                    split_to_time["swarm_pbest_local"])
+        time_kernel(split_recs[1], swarm_move, swarm_move_plain, split_to_time["swarm_move"])
+        # the parallel phase after every profiler session: in a run where it
+        # came before them, three sessions of B1 each lost their first 15
+        # kernel events
+        all_kernels = (*KERNELS, *SPLIT_KERNELS)
+        pipeline_launches.update(parallel_phase(models, device, all_kernels, card, seq_g_best))
+        pipeline_launches.update(remainder_phase(models, device, all_kernels, card, upstream,
+                                                 pso_interim))
 
     for rec in records:
         # the split halves' path is the sharded stage: rank 0's count there

@@ -1,12 +1,6 @@
 """Command-line entry point of the port (counterpart of
-`gan_discovery_pso_tpu/cli/main.py`: `_parse_set`, `_add_common`, `_TINY`,
-`_ctx`, `_epochs` :33-90, `_load_gan`/`_load_cnn` :271-290, and the
-`cae`, `classifiers`, `dcgan`, `cnn`, `cnn-multipatient`, `pso-discovery`,
-`inverter`, `iid-extract`/`ood-extract`, `pso-inverter`,
-`regularize-inverter`, `regularize-inverter-statistics`, `vqvae`,
-`pixelcnn-prior`, `pso-analysis`, `pso-analysis-clustering`,
-`pso-analysis-distance`, `pso-inverter-analysis` and `claro-preprocess`
-branches :351-448):
+`gan_discovery_pso_tpu/cli/main.py`: every subcommand and flag of the JAX
+CLI):
 
     python -m gan_discovery_pso_tpu_torch.cli cae [--epochs E] ...
     python -m gan_discovery_pso_tpu_torch.cli classifiers --path-cae DIR ...
@@ -40,6 +34,14 @@ branches :351-448):
         --path-ood-pso DIR [--ood-patient P] ...
     python -m gan_discovery_pso_tpu_torch.cli claro-preprocess \\
         --cfg configs/claro_preprocess.yaml [--limit N] ...
+    python -m gan_discovery_pso_tpu_torch.cli sweep [--latent-dims D ...] \\
+        [--stages S ...] | --patients P ... [--controls C ...]  [stage flags]
+    python -m gan_discovery_pso_tpu_torch.cli export-model generator|fitness OUT \\
+        --path-gan DIR [--path-cnn DIR] [--batch B] [--class-label L] \\
+        [--platforms cuda cpu] [--fast-math] ...
+    python -m gan_discovery_pso_tpu_torch.cli convert-torch SRC MODEL DST
+    python -m gan_discovery_pso_tpu_torch.cli export-torch SRC MODEL DST \\
+        [--epoch E] [--loss L]
 
 `pso-discovery --shard-swarm N` splits each class's swarm over N ranks
 (`parallel/`): in a process group of N ranks already up (a caller's, or
@@ -55,27 +57,48 @@ artifact and log line. It cannot be combined with --batch-classes.
 package's `cae`, `classifiers`, `dcgan`, `cnn-multipatient`, `inverter` and
 `vqvae` runs: the port reads their flax-msgpack checkpoints. `dcgan
 --resume-id N` re-enters run N and trains --epochs MORE epochs from its
-`checkpoint_g`; `--tiny` evaluates it on 256 samples an epoch. The stages
-run on the card; `--device cpu` is the port's counterpart of
-`JAX_PLATFORMS=cpu`. `--fast-math` runs the swarm's forwards in bf16 (the
-pso-inverter's fine-tune stays in fp32 parity); the training stages (cae,
-cnn, cnn-multipatient, dcgan, inverter, vqvae, pixelcnn-prior),
-classifiers and the two regularize stages refuse it (exit 2, ROADMAP A18),
-and so does `dcgan` under `trainer_gan.compute_dtype`. `--path-cnn` is read by
-`inverter` only for `trainer_inverter.training_function=pix_fea_rec_adv`;
-`--path-pso` is the interim dir of a pso-discovery run (the vqvae's
-codebook, the analyses' particles); `--path-ood-pso` (repeatable) the
-interim dir of a pso-inverter run per inverted patient, whose OoD latents
-the clustering overlays (labelled by `data.ood_classes`) and
-pso-inverter-analysis assigns (`--ood-patient`, else
-`pso_inverter.ood_patient`). `claro-preprocess` reads its manifests from
-the config (`--tiny` caps it at 512 slices, like --limit). These five run
-no model, so `--fast-math` changes nothing there. The regularize
-stages invert the first 8 OoD test images, 500 iterations (50 with
-`--tiny`). `--limit N` caps every dataset load at N images; `--tiny` caps
-at 512 unless --limit says otherwise, and gives 1 training epoch unless
---epochs says otherwise. Every other stage of the JAX CLI exits non-zero,
-naming the ROADMAP item that will port it.
+`checkpoint_g`; `--tiny` evaluates it on 256 samples an epoch;
+`trainer_gan.compute_dtype=bfloat16` trains it with the mixed-precision
+step (`train/dcgan.py`). The stages run on the card; `--device cpu` is the
+port's counterpart of `JAX_PLATFORMS=cpu`.
+
+`--fast-math`: pso-discovery and pso-inverter run the swarm's forwards in
+bf16 copies of the models; the training stages (cae, classifiers, cnn,
+cnn-multipatient, dcgan, inverter, both regularize stages, vqvae,
+pixelcnn-prior) and pso-inverter's fine-tune run inside
+`ops.precision.tf32_math()`, the card's counterpart of the JAX package's
+whole-stage DEFAULT precision; `export-model` exports the bf16 copies.
+
+`--path-cnn` is read by `inverter` only for
+`trainer_inverter.training_function=pix_fea_rec_adv`; `--path-pso` is the
+interim dir of a pso-discovery run (the vqvae's codebook, the analyses'
+particles); `--path-ood-pso` (repeatable) the interim dir of a pso-inverter
+run per inverted patient, whose OoD latents the clustering overlays
+(labelled by `data.ood_classes`) and pso-inverter-analysis assigns
+(`--ood-patient`, else `pso_inverter.ood_patient`). `claro-preprocess`
+reads its manifests from the config (`--tiny` caps it at 512 slices, like
+--limit). These five run no model, so `--fast-math` changes nothing there.
+The regularize stages invert the first 8 OoD test images, 500 iterations
+(50 with `--tiny`). `--limit N` caps every dataset load at N images;
+`--tiny` caps at 512 unless --limit says otherwise, and gives 1 training
+epoch unless --epochs says otherwise.
+
+`sweep` runs the JAX CLI's legs (`cli/main.py:307-334`), each a stage with
+its own run dir and every leg sharing the upstream paths given: the
+latent-dim sweep (reference start.sh:11-36) runs each of `--stages` at each
+of `--latent-dims` with `trainer_gan.z_dim`, `trainer_pso.dim_space` and
+`model_inverter.latent_space` set to the dim; with `--patients`, the
+per-patient sweep (start_pso_optimize.sh:3-16) runs `pso-inverter` for each
+patient x `--controls` entry. `export-model` writes a `torch.export`
+artifact (`compat/export.py`); `--platforms` takes cuda and cpu (one
+artifact serves both) and exits 2 on any other. `convert-torch` and
+`export-torch` convert between the reference's torch checkpoints and the
+msgpack saves (`compat/torch_import.py`, `compat/torch_export.py`) on the
+CPU.
+
+Every stage on a CUDA device, the sweep and export-model included, holds
+the GPU lease (`core/gpulock.py`) while it runs; the ranks of
+`--shard-swarm` and a sweep's legs run under their parent's.
 """
 
 from __future__ import annotations
@@ -86,10 +109,8 @@ import sys
 
 import torch
 
-# stages of the JAX package's CLI that the port does not run yet, with the
-# ROADMAP item of each
-NOT_PORTED = {"sweep": "A17", "export-model": "A17", "convert-torch": "A17",
-              "export-torch": "A17"}
+from gan_discovery_pso_tpu_torch.core.gpulock import gpu_lock
+
 ANALYSIS_STAGES = ("pso-analysis", "pso-analysis-clustering", "pso-analysis-distance",
                    "pso-inverter-analysis")
 INVERSION_STAGES = ("regularize-inverter", "regularize-inverter-statistics")
@@ -97,10 +118,9 @@ INVERSION_STAGES = ("regularize-inverter", "regularize-inverter-statistics")
 # the classifiers' --path-cae)
 MODEL_STAGES = ("cae", "classifiers", "cnn", "cnn-multipatient")
 # stages that train, optimise by gradients or build the evaluation battery:
-# the JAX package's --fast-math there is TPU DEFAULT precision, whose card
-# counterpart is not decided yet
-NO_FAST_MATH = (*MODEL_STAGES, "dcgan", "inverter", *INVERSION_STAGES, "vqvae",
-                "pixelcnn-prior")
+# --fast-math runs them inside ops.precision.tf32_math()
+TF32_STAGES = (*MODEL_STAGES, "dcgan", "inverter", *INVERSION_STAGES, "vqvae",
+               "pixelcnn-prior")
 
 
 def _parse_set(values):
@@ -123,8 +143,8 @@ def _add_common(p):
                    help="tiny-config smoke run (small models and swarms)")
     p.add_argument("--limit", type=int, default=None, help="cap images per dataset")
     p.add_argument("--fast-math", action="store_true",
-                   help="run the swarm's model forwards in bf16 (the swarm math "
-                        "stays fp32) instead of the fp32-parity default")
+                   help="the swarm's model forwards in bf16 (the swarm math stays "
+                        "fp32), training in TF32, instead of the fp32-parity default")
     p.add_argument("--device", default="cuda",
                    help="torch device of the stage (default: the CUDA card; "
                         "'cpu' runs the plain PyTorch path)")
@@ -187,6 +207,8 @@ def _load_cnn(args, ctx):
 
 
 def _parser() -> argparse.ArgumentParser:
+    from gan_discovery_pso_tpu_torch.compat.torch_import import MODELS
+
     parser = argparse.ArgumentParser(prog="gan-discovery-pso-tpu-torch")
     sub = parser.add_subparsers(dest="stage", required=True)
     for name in MODEL_STAGES:
@@ -249,34 +271,170 @@ def _parser() -> argparse.ArgumentParser:
         if name == "pso-inverter-analysis":
             p.add_argument("--ood-patient", type=int, default=None)
     _add_common(sub.add_parser("claro-preprocess"))
+    p = sub.add_parser("sweep")
+    _add_common(p)
+    p.add_argument("--epochs", type=int, default=None)
+    for flag, what in (("cae", "cae"), ("classifiers", "classifiers"), ("gan", "dcgan"),
+                       ("cnn", "cnn"), ("inverter", "inverter"), ("vqvae", "vqvae")):
+        p.add_argument(f"--path-{flag}", default=None, help=f"{what} stage model dir")
+    p.add_argument("--path-pso", default=None, help="pso-discovery stage interim dir")
+    p.add_argument("--path-ood-pso", action="append", default=None,
+                   help="pso-inverter stage interim dir; repeatable")
+    p.add_argument("--latent-dims", type=int, nargs="*", default=[2, 3, 4, 6, 8, 10, 20, 30, 100])
+    p.add_argument("--stages", nargs="*", default=["dcgan", "pso-discovery"])
+    p.add_argument("--patients", type=int, nargs="*", default=None,
+                   help="per-patient sweep: pso-inverter for each patient x control")
+    p.add_argument("--controls", nargs="*",
+                   default=["optimize_in_training", "optimize_out_training"])
+    # what the legs' stages read and the sweep does not set
+    p.set_defaults(resume_id=None, batch_classes=False, shard_swarm=None, ood_patient=None)
+    p = sub.add_parser("export-model",
+                       help="export a torch.export serving artifact (weights inside)")
+    _add_common(p)
+    p.add_argument("what", choices=["generator", "fitness"])
+    p.add_argument("out", help="output artifact path (.pt2)")
+    p.add_argument("--path-gan", required=True)
+    p.add_argument("--path-cnn", default=None,
+                   help="required for `fitness` (assessor models dir)")
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--class-label", type=int, default=None,
+                   help="fitness: the IiD class label to score (default: first iid class)")
+    p.add_argument("--platforms", nargs="*", default=None,
+                   help="devices the artifact must serve: cuda, cpu (it serves both)")
+    p = sub.add_parser("convert-torch", help="import a reference PyTorch checkpoint")
+    p.add_argument("src", help=".pt / .tar checkpoint from the reference")
+    p.add_argument("model", choices=MODELS)
+    p.add_argument("dst", help="output .msgpack path")
+    p = sub.add_parser("export-torch",
+                       help="export a msgpack checkpoint to a reference PyTorch state dict "
+                            "(.pt) or .tar container")
+    p.add_argument("src", help="msgpack checkpoint (state-dict save or GAN checkpoint)")
+    p.add_argument("model", choices=MODELS)
+    p.add_argument("dst", help="output path; .tar wraps the reference's "
+                               "{'epoch','model_state_dict','loss'} dict, anything else "
+                               "saves the bare state_dict")
+    p.add_argument("--epoch", type=int, default=0,
+                   help=".tar epoch field (GAN checkpoints supply their own)")
+    p.add_argument("--loss", type=float, default=0.0,
+                   help=".tar loss field (GAN checkpoints supply their own)")
     return parser
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"{argv[0]}: not yet ported to the PyTorch package "
-              f"(ROADMAP {NOT_PORTED[argv[0]]}); run it with "
-              "`python -m gan_discovery_pso_tpu.cli`", file=sys.stderr)
-        return 2
     args = _parser().parse_args(argv)
-    if args.fast_math and args.stage in NO_FAST_MATH:
-        print(f"--fast-math: not yet ported for the {args.stage} stage (ROADMAP A18); it "
-              "runs in fp32 parity", file=sys.stderr)
-        return 2
-    if args.stage == "dcgan":  # refused before a run dir is made
-        from gan_discovery_pso_tpu_torch.core import load_config
-        from gan_discovery_pso_tpu_torch.pipelines import NotPortedError, refuse_gan_compute_dtype
+    if args.stage == "convert-torch":
+        from gan_discovery_pso_tpu_torch.compat.torch_import import convert_torch_checkpoint
 
-        try:
-            refuse_gan_compute_dtype(load_config(args.cfg, overrides=_parse_set(args.set)))
-        except NotPortedError as e:
-            print(e, file=sys.stderr)
-            return 2
+        convert_torch_checkpoint(args.src, args.model, dst=args.dst)
+        print(f"[convert-torch] {args.src} ({args.model}) -> {args.dst}")
+        return 0
+    if args.stage == "export-torch":
+        from gan_discovery_pso_tpu_torch.compat.torch_export import export_torch_checkpoint
+
+        export_torch_checkpoint(args.src, args.model, args.dst, epoch=args.epoch,
+                                loss=args.loss)
+        print(f"[export-torch] {args.src} ({args.model}) -> {args.dst}")
+        return 0
     if args.limit is not None and args.limit < 0:
         print(f"--limit {args.limit}: a cap on images must not be negative", file=sys.stderr)
         return 2
-    shards = getattr(args, "shard_swarm", None)
+    if args.stage == "export-model":
+        return _export_model(args)
+    return dispatch(args, argv)
+
+
+def _export_model(args):
+    """`export-model {generator,fitness} OUT`: a `torch.export` artifact
+    (`compat/export.py`); no run dir is made."""
+    from gan_discovery_pso_tpu_torch.compat.export import (
+        check_platforms,
+        export_discovery_fitness,
+        export_generator,
+    )
+    from gan_discovery_pso_tpu_torch.core import load_config
+    from gan_discovery_pso_tpu_torch.core.config import DataConfig
+    from gan_discovery_pso_tpu_torch.pipelines import assessor_factory, load_cnn, load_gan
+
+    try:
+        check_platforms(args.platforms)
+    except ValueError as e:
+        print(f"export-model: {e}", file=sys.stderr)
+        return 2
+    overrides = _parse_set(args.set)
+    if args.tiny:
+        overrides = {**_TINY, **overrides}
+    cfg = load_config(args.cfg, overrides=overrides)
+    data_cfg = DataConfig.from_config(cfg.data)
+    dtype = torch.bfloat16 if args.fast_math else None
+    with gpu_lock("cli:export-model", device=args.device):
+        gen = load_gan(args.path_gan, device=args.device)
+        if args.what == "generator":
+            out = export_generator(gen, z_dim=int(cfg.trainer_gan.z_dim), batch=args.batch,
+                                   path=args.out, platforms=args.platforms, dtype=dtype)
+        else:
+            iid = tuple(data_cfg.iid_classes)
+            rdef, _init, _apply = assessor_factory(cfg, data_cfg, len(iid))
+            cnn = load_cnn(_require(args.path_cnn, "--path-cnn",
+                                    "models dir of a cnn-multipatient run"), rdef,
+                           device=args.device)
+            label = args.class_label if args.class_label is not None else iid[0]
+            c2i = rdef.class_to_idx()
+            if label not in c2i:
+                sys.exit(f"export-model: --class-label {label} is not an IiD class of this "
+                         f"config (classes: {sorted(c2i)}) — the exported fitness would "
+                         "score the wrong logit column")
+            out = export_discovery_fitness(gen, cnn, class_idx=c2i[label],
+                                           dim_space=int(cfg.trainer_pso.dim_space),
+                                           batch=args.batch, path=args.out,
+                                           platforms=args.platforms, dtype=dtype)
+    print(f"[export-model] {args.what} -> {out}")
+    return 0
+
+
+def _sweep(args) -> int:
+    """The sweep's legs, each through `dispatch` with its own run dir
+    (JAX `cli/main.py:307-334`)."""
+    if args.patients:
+        # per-patient x control sweep (reference start_pso_optimize.sh:3-16)
+        for patient in args.patients:
+            for control in args.controls:
+                leg = argparse.Namespace(**vars(args))
+                leg.stage = "pso-inverter"
+                leg.ood_patient = patient
+                leg.set = list(args.set) + [
+                    f"pso_inverter.ood_patient={patient}",
+                    f"trainer_pso_inverter.control_pso_fitness={control}",
+                ]
+                print(f"[sweep] patient={patient} control={control}")
+                dispatch(leg)
+        return 0
+    # latent-dim sweep (reference start.sh:11-36)
+    for dim in args.latent_dims:
+        for stage in args.stages:
+            leg = argparse.Namespace(**vars(args))
+            leg.stage = stage
+            leg.set = list(args.set) + [
+                f"trainer_gan.z_dim={dim}",
+                f"trainer_pso.dim_space={dim}",
+                f"model_inverter.latent_space={dim}",
+            ]
+            print(f"[sweep] latent_dim={dim} stage={stage}")
+            dispatch(leg)
+    return 0
+
+
+def dispatch(args, argv=None) -> int:
+    """Run the stage `args` name under the GPU lease (`argv`: the command
+    line, which the ranks of --shard-swarm run again)."""
+    with gpu_lock(f"cli:{args.stage}", device=args.device):
+        if args.stage == "sweep":
+            return _sweep(args)
+        return _run_stage(args, argv)
+
+
+def _run_stage(args, argv) -> int:
+    shards = args.shard_swarm if args.stage == "pso-discovery" else None
     if shards is not None:
         from gan_discovery_pso_tpu_torch.parallel import distributed_initialize_if_needed
 
@@ -292,12 +450,15 @@ def main(argv=None):
             return 0
 
     from gan_discovery_pso_tpu_torch import pipelines as P
+    from gan_discovery_pso_tpu_torch.ops.precision import tf32_math
 
     stage = args.stage
     fast_math = torch.bfloat16 if args.fast_math else None
+    precision = (tf32_math() if args.fast_math and stage in TF32_STAGES
+                 else contextlib.nullcontext())
     writer = shards is None or torch.distributed.get_rank() == 0
     ctx = _ctx(args, stage.replace("-", "_")) if shards is None else _rank_ctx(args, stage)
-    with ctx.tee() if writer else contextlib.nullcontext():
+    with ctx.tee() if writer else contextlib.nullcontext(), precision:
         if shards is not None and writer:
             from gan_discovery_pso_tpu_torch.parallel.launch import spawn
 

@@ -284,15 +284,18 @@ def cae_decoder_tree(sd: dict) -> tuple[dict, dict]:
     return _cae_tree(_CAE_DECODER, sd)
 
 
-def resnet_tree(sd: dict) -> tuple[dict, dict]:
-    """`ResNet` state dict → the JAX package's ResNet (params, state)."""
+def resnet_tree(sd: dict, layers: tuple | None = None) -> tuple[dict, dict]:
+    """`ResNet` state dict → the JAX package's ResNet (params, state): the
+    blocks the state dict holds, or exactly `layers` blocks a stage (a
+    missing key raises KeyError, as the JAX importer's does)."""
     params, state = {"conv1": _conv_tree(sd, "conv1")}, {}
     params["bn1"], state["bn1"] = _bn_tree(sd, "bn1")
     li = 1
-    while f"layer{li}.0.conv1.weight" in sd:
+    while (f"layer{li}.0.conv1.weight" in sd if layers is None else li <= len(layers)):
         blocks, bstates = [], []
         bi = 0
-        while f"layer{li}.{bi}.conv1.weight" in sd:
+        while (f"layer{li}.{bi}.conv1.weight" in sd if layers is None
+               else bi < layers[li - 1]):
             pfx = f"layer{li}.{bi}"
             bp, bs = {}, {}
             for ci in (1, 2, 3):

@@ -6,7 +6,12 @@ from gan_discovery_pso_tpu_torch.ops.knn import (
 )
 from gan_discovery_pso_tpu_torch.ops.norm import batch_norm_eval, batch_norm_train
 from gan_discovery_pso_tpu_torch.ops.pool import adaptive_max_pool2d, max_pool2d
-from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
+from gan_discovery_pso_tpu_torch.ops.precision import (
+    cast_model,
+    fp32_parity,
+    tf32_enabled,
+    tf32_math,
+)
 from gan_discovery_pso_tpu_torch.ops.rescale import (
     adjust_dynamic_range,
     postprocess_uint8,
@@ -30,5 +35,7 @@ __all__ = [
     "postprocess_uint8",
     "rescale01_per_sample",
     "sqrtm_psd",
+    "tf32_enabled",
+    "tf32_math",
     "trace_sqrt_product",
 ]

@@ -87,3 +87,32 @@ def rescale01_per_sample(imgs: torch.Tensor, out_dtype: torch.dtype | None = Non
     rows kernel (flattened per sample), with the cast folded in."""
     n = imgs.shape[0]
     return rescale01_rows(imgs.reshape(n, -1), out_dtype).reshape(imgs.shape)
+
+
+@torch.library.custom_op("gdpt::rescale01_rows", mutates_args=(), device_types="cuda",
+                         schema="(Tensor x, bool out_bf16) -> Tensor")
+def rescale01_rows_op(x: torch.Tensor, out_bf16: bool) -> torch.Tensor:
+    """The registered operator on a CUDA tensor: the kernel's launch."""
+    return rescale01_rows(x, torch.bfloat16 if out_bf16 else torch.float32)
+
+
+@rescale01_rows_op.register_kernel("cpu")
+def _rescale01_rows_op_cpu(x: torch.Tensor, out_bf16: bool) -> torch.Tensor:
+    return rescale01_rows_plain(x, torch.bfloat16 if out_bf16 else torch.float32)
+
+
+@rescale01_rows_op.register_fake
+def _rescale01_rows_op_fake(x: torch.Tensor, out_bf16: bool) -> torch.Tensor:
+    return x.new_empty(x.shape, dtype=torch.bfloat16 if out_bf16 else torch.float32)
+
+
+def rescale01_per_sample_op(imgs: torch.Tensor, out_dtype: torch.dtype | None = None
+                            ) -> torch.Tensor:
+    """`rescale01_per_sample` through the registered operator: what an
+    exported program records as one node."""
+    out_dtype = imgs.dtype if out_dtype is None else out_dtype
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"rescale01_rows: out_dtype must be fp32 or bf16, got {out_dtype}")
+    n = imgs.shape[0]
+    flat = imgs.reshape(n, -1).contiguous()
+    return rescale01_rows_op(flat, out_dtype == torch.bfloat16).reshape(imgs.shape)

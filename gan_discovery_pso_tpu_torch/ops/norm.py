@@ -51,8 +51,10 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if group is not None:
         return _batch_norm_synced(x, scale, bias, running_mean, running_var, momentum, eps,
                                   group)
-    return F.batch_norm(x, running_mean, running_var, scale, bias, training=True,
-                        momentum=momentum, eps=eps)
+    # bf16 parameters (the mixed-precision GAN step) meet fp32 activations:
+    # the statistics and the running update stay in x's dtype
+    return F.batch_norm(x, running_mean, running_var, scale.to(x.dtype), bias.to(x.dtype),
+                        training=True, momentum=momentum, eps=eps)
 
 
 @contextlib.contextmanager
@@ -93,4 +95,5 @@ def _batch_norm_synced(x, scale, bias, running_mean, running_var, momentum, eps,
     with torch.no_grad():
         running_mean.mul_(1.0 - momentum).add_(momentum * mean)
         running_var.mul_(1.0 - momentum).add_(momentum * var * (count / (count - 1)))
-    return centred * torch.rsqrt(var + eps).view(shape) * scale.view(shape) + bias.view(shape)
+    return (centred * torch.rsqrt(var + eps).view(shape) * scale.to(x.dtype).view(shape)
+            + bias.to(x.dtype).view(shape))

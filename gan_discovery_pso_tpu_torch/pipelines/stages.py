@@ -65,6 +65,7 @@ to code indices with that model and trains the Gated PixelCNN on them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import pickle
 import time
@@ -130,7 +131,7 @@ from gan_discovery_pso_tpu_torch.models import (
 from gan_discovery_pso_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNDef, pixelcnn_loss
 from gan_discovery_pso_tpu_torch.models.vqvae import VQVAEGan, VQVAEGanDef
 from gan_discovery_pso_tpu_torch.ops import postprocess_uint8
-from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
+from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity, tf32_math
 from gan_discovery_pso_tpu_torch.pipelines.context import StageContext
 from gan_discovery_pso_tpu_torch.pipelines.pso_discovery import (
     _writable,
@@ -490,19 +491,16 @@ def _resume_gan(ctx: StageContext, state: GanTrainState, history: dict) -> int:
     return offset
 
 
-class NotPortedError(ValueError):
-    """A setting whose code path the port does not have yet; the message
-    names its ROADMAP entry."""
-
-
-def refuse_gan_compute_dtype(cfg) -> None:
-    """Raise NotPortedError when `trainer_gan.compute_dtype` is set: the
-    mixed-precision GAN step is not ported (ROADMAP A18)."""
-    dtype = (cfg.get("trainer_gan") or {}).get("compute_dtype")
-    if dtype is not None:
-        raise NotPortedError(f"trainer_gan.compute_dtype={dtype}: the mixed-precision GAN "
-                             "step is not yet ported (ROADMAP A18); the dcgan stage trains in "
-                             "fp32 parity")
+def gan_compute_dtype(cfg) -> torch.dtype | None:
+    """`trainer_gan.compute_dtype` as a torch dtype (None, and float32, for
+    the fp32 step): the mixed-precision GAN step's (JAX stages.py:323-330)."""
+    name = (cfg.get("trainer_gan") or {}).get("compute_dtype")
+    if name is None:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"trainer_gan.compute_dtype={name}: not a floating torch dtype")
+    return None if dtype == torch.float32 else dtype
 
 
 def run_dcgan(ctx: StageContext, cae: tuple, battery: KnnBattery, epochs: int | None = None,
@@ -525,9 +523,13 @@ def run_dcgan(ctx: StageContext, cae: tuple, battery: KnnBattery, epochs: int | 
     (the train state in the JAX layout), the plots, the raw fixed-noise
     superimage and `best_g` when the IS improves; a run in which no epoch
     improved saves the state it started from as `best_g`. Returns (the
-    state holding best_g's weights, G in eval mode; the history)."""
+    state holding best_g's weights, G in eval mode; the history).
+
+    `trainer_gan.compute_dtype=bfloat16` trains with the mixed-precision
+    step (`train/dcgan.py`): master parameters, Adam and the checkpoints
+    stay fp32."""
     cfg, tag = ctx.cfg, "dcgan"
-    refuse_gan_compute_dtype(cfg)
+    compute_dtype = gan_compute_dtype(cfg)
     gdef = GeneratorDef(int(cfg.trainer_gan.z_dim), ctx.data_cfg.channel,
                         int(cfg.model_gan.network.units_gen))
     ddef = DiscriminatorDef(ctx.data_cfg.channel, int(cfg.model_gan.network.units_disc))
@@ -559,7 +561,7 @@ def run_dcgan(ctx: StageContext, cae: tuple, battery: KnnBattery, epochs: int | 
         raise ValueError(f"train dataset has {len(ds.images)} images < batch_size {bs} — the "
                          "drop-last epoch loop would run zero batches; lower "
                          "trainer_gan.batch_size or raise the data cap")
-    step = make_gan_train_step(state, label_smoothing)
+    step = make_gan_train_step(state, label_smoothing, compute_dtype=compute_dtype)
     sampler = make_sampler(state.gen)
     mw = ctx.metrics("history_gan")
     if resume:
@@ -1037,8 +1039,9 @@ def run_pso_inverter(
     encoder. Returns (the swarm as a B = 1 SwarmResult on the host, the
     binary assessor).
 
-    fast_math_dtype=torch.bfloat16 runs the swarm's forwards in bf16; the
-    encoder and the fine-tune stay fp32. draws=(velocities [n, d], r1
+    fast_math_dtype=torch.bfloat16 runs the swarm's forwards in bf16 and the
+    fine-tune inside `tf32_math()` (the JAX stage's whole-stage DEFAULT
+    precision covers it); the encoder stays fp32. draws=(velocities [n, d], r1
     [iters, n], r2 [iters, n]) replaces the swarm's draws from the stream
     `pso` (parity tests feed the JAX package's)."""
     cfg = ctx.cfg
@@ -1061,7 +1064,8 @@ def run_pso_inverter(
     else:
         epochs = (fine_tune_epochs if fine_tune_epochs is not None
                   else int(cfg.trainer_pso_inverter.epochs))
-        fine, cnn_history = _fine_tune(ctx, assessor, bdef, ood_patient, epochs)
+        with tf32_math() if fast_math_dtype is not None else contextlib.nullcontext():
+            fine, cnn_history = _fine_tune(ctx, assessor, bdef, ood_patient, epochs)
     phase1_s = time.perf_counter() - t_phase1
 
     # --- phase 2: the encoder-seeded swarm over the patient's slices

@@ -62,18 +62,21 @@ def apply_discovery_fitness(
     eps: float = 0.1,
     dtype: torch.dtype | None = None,
     return_images: bool = False,
+    rescale: Callable = rescale01_per_sample,
 ):
     """positions [M, d] → fitness [M] (fp32). `dtype` (bf16 mode) casts the
     latents; the caller casts the models (`ops.precision.cast_model`). The
     images come out fp32 either way (`ops/conv.py`); in bf16 mode the rescale
     kernel casts them to bf16, the cast the assessor's first conv would make
     (the JAX package casts there). `return_images` gives
-    (fitness, (rescaled images, generator images)), each [M, C, H, W]."""
+    (fitness, (rescaled images, generator images)), each [M, C, H, W].
+    `rescale` is B2's wrapper; an exported program passes the registered
+    operator (`ops.kernels.rescale01_per_sample_op`)."""
     z = positions.reshape(positions.shape[0], positions.shape[1], 1, 1)
     if dtype is not None:
         z = z.to(dtype)
     img = gen_model(z)
-    img01 = rescale01_per_sample(img.float(), out_dtype=dtype or img.dtype)
+    img01 = rescale(img.float(), out_dtype=dtype or img.dtype)
     logits = assessor(img01)
     vals = fitness_from_posterior(assessor_posterior(logits, class_idx),
                                   control, threshold, eps)

@@ -1,6 +1,6 @@
 """DCGAN adversarial training and the GAN evaluation's sampler (counterpart
 of `gan_discovery_pso_tpu/train/dcgan.py`: `GanTrainState` :45, `gan_init`
-:54, `make_gan_train_step` :76-157, `make_sampler` :191-205).
+:54, `make_gan_train_step` :74-157, `make_sampler` :191-205).
 
 The train step reproduces the reference loop (src/utils/util_dcgan.py:
 184-223) in this order:
@@ -34,6 +34,15 @@ update and reports the global losses. The state is broadcast from the
 group's first rank when the step is made. This is the JAX package's step
 under a data mesh (`tests/test_parallel.py:93`), which no stage of either
 package runs.
+
+Mixed precision (`compute_dtype=torch.bfloat16`, JAX :74-135): G and D
+run on bf16 copies of their parameters made inside the step by a cast that
+autograd differentiates (`torch.func.functional_call`), so the gradients
+reach the fp32 master parameters in fp32, and Adam's state stays fp32. The
+convs multiply in bf16 and return fp32 (`ops/conv.py`: bf16 activations
+made the DCGAN's images constant, ROADMAP §C), so the BN batch statistics
+are computed in fp32 and the running statistics are written back in fp32;
+the logits and losses are fp32.
 
 `make_gan_train_scan_step` (:160, K steps as one XLA program) is not
 ported: K calls of the step are the same computation, and the JAX package's
@@ -122,11 +131,41 @@ def _draws(draw, bs: int, z_dim: int, real: torch.Tensor, label_smoothing: bool)
             smooth_negative(draw, (bs,), device))
 
 
-def make_gan_train_step(state: GanTrainState, label_smoothing: bool = True, group=None):
+class _Method(nn.Module):
+    """`module.<name>(*args)` as a forward, for `functional_call`."""
+
+    def __init__(self, module: nn.Module, name: str):
+        super().__init__()
+        self.m = module
+        self.name = name
+
+    def forward(self, *args):
+        return getattr(self.m, self.name)(*args)
+
+
+def _in_dtype(module: nn.Module, name: str, dtype: torch.dtype | None) -> Callable:
+    """`module.<name>`, or with a dtype the same method run on `dtype` casts
+    of the module's parameters, made at each call and differentiated
+    through; buffers (BN running statistics) stay the module's own."""
+    method = getattr(module, name)
+    if dtype is None:
+        return method
+    wrapper = _Method(module, name)
+
+    def call(*args):
+        params = {f"m.{k}": p.to(dtype) for k, p in module.named_parameters()}
+        return torch.func.functional_call(wrapper, params, args)
+
+    return call
+
+
+def make_gan_train_step(state: GanTrainState, label_smoothing: bool = True, group=None,
+                        compute_dtype: torch.dtype | None = None):
     """train_step(real [B, C, H, W], draw) → {'loss_gen', 'loss_disc'}, 0-d
     tensors on the device, one step of G and D in `state` (see the module
     docstring); `state.step` counts the steps. Without label smoothing the
     targets are 1 and 0 (a generator then draws the noise alone).
+    compute_dtype=torch.bfloat16 is the mixed-precision step.
 
     With a process group, `real` and the draws are the GLOBAL batch's
     (every rank passes the same, or the same generator seed) and each rank
@@ -134,6 +173,8 @@ def make_gan_train_step(state: GanTrainState, label_smoothing: bool = True, grou
     gen, disc = state.gen, state.disc
     g_params, d_params = list(gen.parameters()), list(disc.parameters())
     z_dim = gen.gen[0][0].in_channels
+    gen_fwd = _in_dtype(gen, "forward", compute_dtype)
+    disc_logits = _in_dtype(disc, "logits", compute_dtype)
     if group is not None:
         _broadcast_modules((gen, disc), group)
 
@@ -143,12 +184,12 @@ def make_gan_train_step(state: GanTrainState, label_smoothing: bool = True, grou
             real, noise, y_real, y_fake = _rank_slice((real, noise, y_real, y_fake), group)
         gen.train()
         with sync_batch_norm(group):
-            fake = gen(noise)
-        loss_d = (bce_from_logits(disc.logits(real), y_real)
-                  + bce_from_logits(disc.logits(fake.detach()), y_fake)) / 2.0
+            fake = gen_fwd(noise)
+        loss_d = (bce_from_logits(disc_logits(real), y_real)
+                  + bce_from_logits(disc_logits(fake.detach()), y_fake)) / 2.0
         optimizer_step(state.opt_d, d_params, loss_d, group)
         with frozen(disc):
-            loss_g = bce_from_logits(disc.logits(fake), y_real)
+            loss_g = bce_from_logits(disc_logits(fake), y_real)
             optimizer_step(state.opt_g, g_params, loss_g, group)
         state.step += 1
         losses = torch.stack([loss_g.detach(), loss_d.detach()])

@@ -419,11 +419,3 @@ def test_cli_runs_the_assessor_stages_on_the_cpu(data_root, stage, capsys):
     labels = (0, 2) if stage == "cnn" else (None,)
     for label in labels:
         assert isinstance(load_cnn(models, rdef, label=label, device="cpu"), ResNet)
-
-
-@pytest.mark.parametrize("stage", ["cae", "classifiers", "cnn", "cnn-multipatient"])
-def test_cli_refuses_fast_math_on_the_new_stages(stage, capsys, tmp_path):
-    roots = [f"data.{k}_dir={tmp_path / k}" for k in ("reports", "model", "interim")]
-    assert cli_main([stage, "--fast-math", "--device", "cpu", "--set", *roots]) == 2
-    assert "ROADMAP A18" in capsys.readouterr().err
-    assert not (tmp_path / "reports").exists()

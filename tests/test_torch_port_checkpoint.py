@@ -325,25 +325,6 @@ def test_last_iteration_of_a_zero_row_history_matches_jax():
     assert last_iteration(PsoHistory(*hist(2))) == [jax_last_iteration(empty)] * 2
 
 
-@pytest.mark.parametrize("stage,item", [("convert-torch", "A17"), ("export-torch", "A17"),
-                                        ("export-model", "A17"), ("sweep", "A17")])
-def test_cli_refuses_unported_stages(stage, item, capsys):
-    assert cli_main([stage, "--cfg", CFG]) != 0
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and f"ROADMAP {item}" in err
-
-
-@pytest.mark.parametrize("stage", ["inverter", "regularize-inverter",
-                                   "regularize-inverter-statistics"])
-def test_cli_refuses_fast_math_on_gradient_stages(stage, capsys, tmp_path):
-    """The JAX package's --fast-math there is TPU DEFAULT precision, whose
-    card counterpart is not decided: refused before a run dir is made."""
-    roots = [f"data.{k}_dir={tmp_path / k}" for k in ("reports", "model", "interim")]
-    assert cli_main([stage, "--fast-math", "--device", "cpu", "--set", *roots]) == 2
-    assert "ROADMAP A18" in capsys.readouterr().err
-    assert not (tmp_path / "reports").exists()
-
-
 def test_cli_refuses_shard_swarm(capsys, tmp_path):
     """--shard-swarm runs (tests/test_torch_port_parallel.py); with
     --batch-classes it exits 2 with the JAX stage's message

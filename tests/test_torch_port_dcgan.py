@@ -22,6 +22,7 @@ one package bit-equal."""
 
 import copy
 import json
+import re
 import struct
 
 import jax
@@ -47,7 +48,7 @@ from gan_discovery_pso_tpu.pipelines.stages import load_gan as jax_load_gan
 from gan_discovery_pso_tpu.train import common as jcommon
 from gan_discovery_pso_tpu.train import dcgan as jdcgan
 from gan_discovery_pso_tpu.train.cae import cae_init
-from gan_discovery_pso_tpu_torch.cli.main import NOT_PORTED
+from gan_discovery_pso_tpu_torch.cli.main import _parser
 from gan_discovery_pso_tpu_torch.cli.main import main as cli_main
 from gan_discovery_pso_tpu_torch.compat import generator_state_dict, generator_tree, to_tensors
 from gan_discovery_pso_tpu_torch.core import AdamConfig, load_config
@@ -459,24 +460,12 @@ def test_dcgan_kill_and_resume_bit_identical(upstream):
     assert files["single"] == files["killed"]
 
 
-def test_dcgan_compute_dtype_is_refused(upstream, capsys):
-    """tests/test_pipeline_e2e.py:777: the mixed-precision GAN step is not
-    ported: the CLI exits 2 naming ROADMAP A18 before a run dir is made,
-    and the stage raises."""
-    root = upstream["root"]
-    argv = ["dcgan", "--cfg", CFG, "--tiny", "--device", "cpu", "--path-cae",
-            str(upstream["cae"]), "--path-classifiers", str(upstream["cls"]),
-            *_sets(root, "bf16", **{"trainer_gan.compute_dtype": "bfloat16"})]
-    assert cli_main(argv) == 2
-    assert "ROADMAP A18" in capsys.readouterr().err
-    assert not (root / "bf16").exists()
-    assert cli_main([*argv[:6], "--fast-math", *argv[6:]]) == 2
-    cfg = load_config(CFG, overrides={"trainer_gan.compute_dtype": "bfloat16",
-                                      **{f"data.{k}_dir": str(root / "bf16_fn" / k)
-                                         for k in ("reports", "model", "interim")}})
-    with pytest.raises(ValueError, match="A18"):
-        run_dcgan(StageContext.create(cfg, "dcgan", device="cpu"), *_cae_battery(upstream))
-
-
-def test_dcgan_and_the_vqvae_stages_are_ported():
-    assert not {"dcgan", "vqvae", "pixelcnn-prior"} & set(NOT_PORTED)
+def test_dcgan_and_the_vqvae_stages_are_ported(capsys):
+    """Every subcommand of the JAX CLI is one of the port's: none is left
+    unported, dcgan and the VQ-VAE stages among them."""
+    with pytest.raises(SystemExit):
+        jax_cli_main(["--help"])
+    usage = re.search(r"\{([^}]*)\}", capsys.readouterr().out).group(1)
+    jax_stages = set(usage.split(","))
+    port_stages = set(_parser()._subparsers._group_actions[0].choices)
+    assert {"dcgan", "vqvae", "pixelcnn-prior"} <= jax_stages == port_stages
