@@ -11,22 +11,25 @@ bit) at the main path's shapes and at the edges of their range (B = 1,
 stacked swarms, odd and unaligned sizes, N = 4096 x d = 1024, 4096 images,
 long rows), drives the main path — the batched PSO discovery sweep, 8
 classes x 32 particles x 50 iterations, z=100, DCGAN G(64), ResNet-50 with
-8 classes, seeded random weights — in fp32 parity mode and in bf16, checks
+8 classes, seeded random weights — in fp32 parity mode, under TF32 (the
+CLI's `--fast-math`: fp32 models inside `tf32_math()`) and in bf16, checks
 that every kernel of the path launched once per iteration, profiles one
 fp32 and one bf16 run, checks the results (finite, in [eps, 1+eps],
-reproducible, the bf16 gate, agreement with the CPU path on a small
+reproducible, the TF32 and bf16 gates, agreement with the CPU path on a small
 input), runs the pso-discovery stage through its CLI on JAX-format
 checkpoints of the same models (the pipeline phase, between the main-path
 runs and the first profiler session: batched fp32 bit-equal to the runner,
-sequential, the shipped dimension 2 with its landscape, bf16), runs the
+sequential, the shipped dimension 2 with its landscape, `--fast-math`
+held to the gate), runs the
 pso-inverter stage through its CLI (the inverter phase, right after: a
 seeded encoder f=64 z=100 beside G and the ResNet-50 as JAX-format
 checkpoints, a 1-epoch fine-tune of the re-headed binary assessor on the
 synthetic digits, 256 encoder-seeded particles x 50 iterations; the
-try-load rerun and the runner called directly bit-equal to it; bf16; 5
-fine-tune steps profiled), runs the inverter and the two regularize stages
-through their CLI (the inverter training phase: 1-epoch pix_fea_rec_adv,
-pix_rec and AttGAN runs at the shipped widths on the same checkpoints, each
+try-load rerun and the runner called directly bit-equal to it; bf16; the
+stage under `tf32_math()` held to the gate; 5 fine-tune steps profiled),
+runs the inverter and the two regularize stages through their CLI (the
+inverter training phase: 1-epoch pix_fea_rec_adv, pix_rec and AttGAN runs
+at the shipped widths on the same checkpoints and --limit 2048 images, each
 encoder read back bit-equal; 5 steady steps of each kind profiled;
 regularize-inverter on 8 OoD images x 500 iterations with a bit-equal
 rerun; regularize-inverter-statistics on the pipeline phase's particles;
@@ -70,16 +73,26 @@ class x swarm runner against the batched runner and the data-parallel GAN
 step at the shipped widths against the one-process step; the split halves
 are held bit-equal to their plain versions, shard by shard and together
 against the fused plain version, before the main path runs), then the
-remainder phase, last (`export-model fitness` and `generator` loaded
+remainder phase (`export-model fitness` and `generator` loaded
 again and held to the runner, one B2 launch a fitness call through B2's
-registered operator, itself bit-equal to the plain version; `sweep
+registered operator, itself bit-equal to the plain version; `export-model
+fitness --fast-math` under the policy "tf32" held to the runner under TF32;
+`sweep
 --latent-dims 10` with a dcgan and a sequential pso-discovery leg, and one
 patient x both controls of pso-inverter, every leg under the GPU lease
 with its launches counted; `export-torch` then `convert-torch` of the
 card-trained G, bit-equal; a `core.trace` file naming B1 and B2; the GAN
-step's 30-step loss-trajectory gate under TF32 and the bf16 step; reduced
+step's 30-step loss-trajectory gate under TF32 and the bf16 step; the
+GAN scan step, K = 10 steps as one CUDA graph: bit-equal to 10 eager steps
+in fp32 parity, the 30-step gate graphed under TF32 and bf16, eager and
+graphed step ms and idle share per mode, a failing capture raising; reduced
 `--fast-math` runs of five training stages beside their fp32-parity
-runs), timing each kernel at the main path's shape and at a large one
+runs), then, last, the experiment driver's phase (the short z-10 chain
+cae -> classifiers -> cnn_multipatient -> dcgan_z10 -> pso_z10 ->
+pso_analysis_distance_z10 through `tools/run_experiment.py`, each leg a
+CLI subprocess at 1 epoch and --limit 2048, B1 and B2 counted in its
+legs, a resumed invocation running none), timing each kernel at the main
+path's shape and at a large one
 before the parallel phase (device µs per launch from the profiler over
 the last 50 of 80 calls in a session, as the profiler loses the kernel
 events of a session's first calls; beside the bound), and prints:
@@ -96,6 +109,7 @@ not beside the script. It imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import pickle
@@ -822,7 +836,8 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
     """The pso-discovery stage through its CLI on JAX-format checkpoints of
     the seeded full-width models: batched fp32 (bit-equal to the runner
     called directly), sequential (B = 1 per class), the shipped dimension 2
-    with its landscape, and bf16. Returns each run's launches.
+    with its landscape, and --fast-math (TF32 on the fp32 models, held to
+    the gate against batched fp32). Returns each run's launches.
     `after_step(name)`, where given, is called after each step; the batched
     fp32 run's interim dir is copied to `keep_interim` and the dimension-2
     run's to `keep_dim2`, and the sequential run's g_best per class put into
@@ -910,23 +925,24 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
                 raise AssertionError(f"pipeline dim2: class {c} fitness_grid {grid.shape} "
                                      f"in [{grid.min()}, {grid.max()}]")
 
-        # 5. bf16 on step 2's setup: the gate
-        bf16 = run_cli(tmp, "bf16", dirs, device, kernels, "--batch-classes", "--fast-math",
-                       sets=sets100)
-        step("bf16 CLI run")
-        expect_launches(bf16, dict.fromkeys(names, hp_iters))
-        gate = float(np.abs(check_g_best(bf16, len(classes)) - g32).max())
+        # 5. --fast-math (TF32 on the fp32 models) on step 2's setup: the gate
+        tf32 = run_cli(tmp, "fast_math_tf32", dirs, device, kernels, "--batch-classes",
+                       "--fast-math", sets=sets100)
+        step("--fast-math CLI run")
+        expect_launches(tf32, dict.fromkeys(names, hp_iters))
+        gate = float(np.abs(check_g_best(tf32, len(classes)) - g32).max())
         if gate > GATE:
-            raise AssertionError(f"pipeline bf16 gate: max |g32 - g16| = {gate} > {GATE}")
+            raise AssertionError(f"pipeline --fast-math (TF32) gate: max |g32 - g_tf32| = "
+                                 f"{gate} > {GATE}")
 
     log(f"pipeline: batched CLI run bit-equal to the runner (trajectories, velocities, "
         f"g_best of {len(classes)} classes); sequential within {seq_diff:.3e} of batched "
-        f"(<= {SEQ_TOL}); bf16 gate {gate:.3e} (<= {GATE}); dim 2 landscapes "
+        f"(<= {SEQ_TOL}); --fast-math (TF32) gate {gate:.3e} (<= {GATE}); dim 2 landscapes "
         f"[{LANDSCAPE},{LANDSCAPE}] in [eps, 1+eps]")
     log(f"pipeline: host packages missing, families not written: {skipped or 'none'}")
     log(f"pipeline runner alone (batched fp32, direct call): {runner_s:.6f} s, "
         f"{evals / runner_s:.0f} evals/s ({card})")
-    for run in (batched, seq, dim2, bf16):
+    for run in (batched, seq, dim2, tf32):
         t = run["timing"]
         runner_in_stage = t.get("training_time_all_classes") or max(
             v for k, v in t.items() if k.startswith("training_time_class_"))
@@ -1006,7 +1022,7 @@ def inverter_phase(models, device, kernels, card: str, sets=(),
     from gan_discovery_pso_tpu_torch.core.config import AdamConfig, DataConfig
     from gan_discovery_pso_tpu_torch.core.prng import KeyChain
     from gan_discovery_pso_tpu_torch.models import ResNetDef
-    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity, tf32_math
     from gan_discovery_pso_tpu_torch.pipelines import (
         StageContext, assessor_factory, load_cnn, load_encoder, load_gan, run_pso_inverter)
     from gan_discovery_pso_tpu_torch.pso import (
@@ -1118,6 +1134,20 @@ def inverter_phase(models, device, kernels, card: str, sets=(),
         bf16_diff = abs(check_inverter_g_best(bf16.g_best_val[0], "bf16") - g32)
         timings["bf16"] = stage_numbers(ctx.run.reports_dir)
 
+        # 6b. --fast-math as the CLI runs it (the whole stage inside
+        # tf32_math(), fp32 models) on the try-load branch: the gate
+        ctx = try_load_ctx()
+        zero()
+        with tf32_math(), ctx.tee():
+            tf32, _ = run_pso_inverter(ctx, gen, enc, cnn, rdef, ood_patient=PATIENT)
+        torch.cuda.synchronize()
+        out["inverter_tf32"] = counts()
+        tf32_diff = abs(check_inverter_g_best(tf32.g_best_val[0], "tf32") - g32)
+        if tf32_diff > GATE:
+            raise AssertionError(f"inverter --fast-math (TF32) gate: |g_best fp32 - tf32| "
+                                 f"{tf32_diff} > {GATE}")
+        timings["tf32"] = stage_numbers(ctx.run.reports_dir)
+
         # 7. where the fine-tune's time goes: a few of its steps profiled
         tune = profile_fine_tune(fine, ctx.dataset("train", classes=bdef.iid_classes,
                                                    drange=(0, 1)),
@@ -1129,7 +1159,8 @@ def inverter_phase(models, device, kernels, card: str, sets=(),
     evals = n * n_iters
     log(f"inverter: try-load rerun and runner alone bit-equal to the CLI run "
         f"(trajectories, velocities, g_best); encoder card vs CPU {enc_diff:.3e} (rtol 1e-4); "
-        f"|g_best fp32 - bf16| {bf16_diff:.3e} (not gated)")
+        f"|g_best fp32 - bf16| {bf16_diff:.3e} (not gated); |g_best fp32 - tf32| "
+        f"{tf32_diff:.3e} (<= {GATE})")
     for label, t in timings.items():
         stage = f"stage {t['stage_s']:.6f} s, " if "stage_s" in t else ""
         tuned = (f" (data {t['data_s']:.6f} s, training {t['train_s']:.6f} s)"
@@ -2839,6 +2870,7 @@ def parallel_phase(models, device, kernels, card: str, seq_g_best: dict) -> dict
 
 EXPORT_BATCH = N_CLASSES * N_PARTICLES  # the exported fitness's batch: the main path's images
 GATE_STEPS = 30  # bench.py's GAN loss-trajectory gate (bench.py:515-522)
+SCAN_K = 10  # GAN steps a graphed scan call runs
 TRAIN_GATE = 0.25  # mean |loss - loss_fp32| over the GATE_STEPS steps, either loss
 REDUCED_LIMIT = "2048"  # images a dataset of the reduced --fast-math runs holds
 
@@ -2898,15 +2930,17 @@ def export_checks(models, device, kernels, card: str, tmp: Path, dirs: dict) -> 
     expected in fp32 parity; the largest gap is reported), one B2 launch
     per call of the fitness artifact and no B1; B2's registered operator
     bit-equal to its plain version at [EXPORT_BATCH, 784] in fp32 and bf16;
-    the trace and save seconds, and per-call ms of artifact and runner in
-    turns. Returns (report, launches of one artifact call)."""
+    `export-model fitness --fast-math`: the policy "tf32", fp32 weights, one
+    B2 launch a call, within GATE of the runner's fitness under
+    `tf32_math()`; the trace and save seconds, and per-call ms of artifact
+    and runner in turns. Returns (report, launches of one artifact call)."""
     import torch
 
     import gan_discovery_pso_tpu_torch.cli.main as cli_module
     from gan_discovery_pso_tpu_torch.compat.export import load_exported
     from gan_discovery_pso_tpu_torch.core import load_config
     from gan_discovery_pso_tpu_torch.core.config import DataConfig
-    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity, tf32_math
     from gan_discovery_pso_tpu_torch.ops.kernels import rescale01_rows_op, rescale01_rows_plain
     from gan_discovery_pso_tpu_torch.pso import make_discovery_fitness_dynamic
 
@@ -2927,14 +2961,15 @@ def export_checks(models, device, kernels, card: str, tmp: Path, dirs: dict) -> 
     torch.export.export, torch.export.save = (timed_call("export", "trace_s"),
                                               timed_call("save", "save_s"))
     try:
-        for what in ("generator", "fitness"):
+        for what, flags in (("generator", ()), ("fitness", ()),
+                            ("fitness_fast_math", ("--fast-math",))):
             paths[what] = tmp / "export" / f"{what}.pt2"
             t0 = time.perf_counter()
             rc = cli_module.main([
-                "export-model", what, str(paths[what]), "--cfg", str(CFG), "--device",
-                str(device), "--path-gan", str(dirs["gan"]), "--path-cnn", str(dirs["cnn"]),
-                "--batch", str(EXPORT_BATCH), "--class-label", str(label), "--set",
-                f"trainer_gan.z_dim={DIM}", f"trainer_pso.dim_space={DIM}"])
+                "export-model", what.split("_")[0], str(paths[what]), "--cfg", str(CFG),
+                "--device", str(device), "--path-gan", str(dirs["gan"]), "--path-cnn",
+                str(dirs["cnn"]), "--batch", str(EXPORT_BATCH), "--class-label", str(label),
+                *flags, "--set", f"trainer_gan.z_dim={DIM}", f"trainer_pso.dim_space={DIM}"])
             walls[what] = time.perf_counter() - t0
             if rc != 0:
                 raise AssertionError(f"export-model {what}: the CLI returned {rc}")
@@ -2971,6 +3006,28 @@ def export_checks(models, device, kernels, card: str, tmp: Path, dirs: dict) -> 
         if a.shape != b.shape or not torch.allclose(a, b, rtol=1e-5, atol=0):
             raise AssertionError(f"{what} artifact vs the runner: max |diff| {gap}")
         report[what] = {"bit_equal": bool(torch.equal(a, b)), "max_abs_gap": gap}
+    # export-model --fast-math: fp32 weights under the policy "tf32", held to
+    # the runner's fitness under tf32_math() by the TF32 gate
+    tf32_art = load_exported(paths["fitness_fast_math"], device=device)
+    dtypes = {str(t.dtype) for t in (*tf32_art.program.state_dict.values(),
+                                     *tf32_art.program.constants.values())
+              if t.is_floating_point()}
+    if tf32_art.policy != "tf32" or dtypes != {"torch.float32"}:
+        raise AssertionError(f"export-model --fast-math: policy {tf32_art.policy}, weights "
+                             f"{dtypes}; want tf32 and float32")
+    zero_counts(kernels)
+    got_tf32 = tf32_art.call(pos)
+    torch.cuda.synchronize()
+    tf32_launches = {k.__name__: k.launches for k in kernels}
+    with tf32_math():
+        want_tf32 = runner(pos, idx)
+    tf32_gap = float((got_tf32 - want_tf32).abs().max())
+    if tf32_gap > GATE or tf32_launches != launches:
+        raise AssertionError(f"export-model --fast-math: max |artifact - runner under TF32| "
+                             f"{tf32_gap} (gate {GATE}), launches {tf32_launches}")
+    report["fitness_fast_math"] = {"policy": tf32_art.policy, "weights": sorted(dtypes),
+                                   "max_abs_gap_to_runner_tf32": tf32_gap,
+                                   "max_abs_gap_to_fp32": float((got_tf32 - want).abs().max())}
     # B2 through the operator, against its plain version
     imgs = g_want.reshape(EXPORT_BATCH, -1).contiguous()
     for out_bf16 in (False, True):
@@ -3114,11 +3171,205 @@ def gan_step_gate(device, data: dict) -> dict:
         if max(diffs) > TRAIN_GATE:
             raise AssertionError(f"GAN gate: {mode} mean |loss - loss_fp32| {diffs} > "
                                  f"{TRAIN_GATE}")
+    keys = ("wall_ms_per_step", "device_busy_ms", "device_idle_share")
     return {"mean_abs_loss_diff_gen_disc": gate, "gate": TRAIN_GATE, "steps": GATE_STEPS,
             "final_losses": {m: [float(v) for v in t[-1]] for m, t in traj.items()},
-            "profiled_steps": {m: {k: p[k] for k in ("wall_ms_per_step", "device_busy_ms",
-                                                     "device_idle_share") if k in p}
-                               for m, p in prof.items()}}
+            "profiled_steps": {m: {k: p[k] for k in keys if k in p} for m, p in prof.items()},
+            "scan": gan_scan_checks(device, base, adam, batches, traj["fp32"], modes)}
+
+
+def gan_scan_checks(device, base, adam, batches, traj32, modes) -> dict:
+    """`make_gan_train_scan_step` at K = SCAN_K on the card, from copies of
+    the gate's seeded state (z 10, f 64, batch 128):
+    1. the capturable optimizers' eager step against the plain eager step
+       (fp32 parity): 1 and 3 steps at tests/test_train.py:456's tolerances;
+    2. under fp32 parity, in fp32 and in bf16 (`compute_dtype`): K graphed
+       steps bit-equal to K eager steps with the same capturable
+       optimizers, state and draws (losses, G and D, both optimizers'
+       state, G's BN statistics, the step count);
+    3. TF32 and bf16: GATE_STEPS / SCAN_K graphed calls of the gate's batch
+       and draws, mean |loss - the eager fp32 loss| at most TRAIN_GATE;
+       beside it the same gate of GATE_STEPS eager steps with the
+       capturable optimizers, whose losses the graphed ones equal bit for
+       bit where the mode is deterministic (fp32 parity: fp32 and bf16),
+       so that a gap to the plain eager gate is the optimizer's;
+    4. per mode: the first call's seconds (warm-up, capture, one replay),
+       and the eager and the graphed step's wall ms and device idle share
+       (profiler; a generator's draws each step or call);
+    5. a capture that fails raises, with the state restored (in a child
+       process, `scan_capture_failure`)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops import fp32_parity
+    from gan_discovery_pso_tpu_torch.train.common import make_capturable, make_optimizer
+    from gan_discovery_pso_tpu_torch.train.dcgan import (
+        GanTrainState, _draws, make_gan_train_scan_step, make_gan_train_step)
+
+    z_dim = base.gen.gen[0][0].in_channels
+    real = batches[0]
+    bs = real.shape[0]
+
+    def fresh(capturable: bool):
+        g, d = copy.deepcopy(base.gen), copy.deepcopy(base.disc)
+        opts = [make_optimizer(adam, list(m.parameters())) for m in (g, d)]
+        if capturable and device.type == "cuda":  # torch's capturable optimizers
+            for opt in opts:
+                make_capturable(opt)
+        return GanTrainState(g, d, *opts)
+
+    def weights(st) -> list:
+        return [p.detach().clone() for p in (*st.gen.parameters(), *st.disc.parameters())]
+
+    def gate_draws(first: int, k: int) -> tuple:
+        rows = [_draws(torch.Generator(device=device).manual_seed(SEED + 60 + i), bs, z_dim,
+                       real, True) for i in range(first, first + k)]
+        return tuple(torch.stack(col) for col in zip(*rows))
+
+    def tensors(st) -> list:
+        out = [*st.gen.state_dict().values(), *st.disc.state_dict().values()]
+        for opt in (st.opt_g, st.opt_d):
+            for state in opt.state.values():
+                out += [v for v in state.values() if torch.is_tensor(v)]
+        return out
+
+    report = {"K": SCAN_K}
+    reals = real.expand(SCAN_K, *real.shape).contiguous()
+
+    # 1. the capturable setting against the eager step the CPU tests hold to JAX
+    with fp32_parity():
+        runs = {}
+        for label in ("plain", "capturable"):
+            st = fresh(label == "capturable")
+            step = make_gan_train_step(st)
+            d = gate_draws(0, 3)
+            rows, after = [], []
+            for i in range(3):
+                rows.append(step(real, tuple(x[i] for x in d)))
+                after.append(weights(st))
+            runs[label] = (after, torch.stack([torch.stack([r["loss_gen"], r["loss_disc"]])
+                                               for r in rows]).cpu().numpy())
+    (wp, lp), (wc, lc) = runs["plain"], runs["capturable"]
+    np.testing.assert_allclose(lc[0], lp[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(lc, lp, rtol=1e-2, atol=5e-3)
+    for k, rtol, atol in ((0, 1e-2, 2e-4), (2, 5e-2, 1e-3)):
+        for a, b in zip(wc[k], wp[k]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=rtol, atol=atol)
+    report["capturable_vs_plain_eager"] = {
+        "max_abs_loss_diff": float(np.abs(lc - lp).max()),
+        "max_abs_weight_diff_after_3": max(float((a - b).abs().max())
+                                           for a, b in zip(wc[2], wp[2]))}
+
+    # 2. fp32 parity, fp32 and bf16: graphed bit-equal to eager, same optimizers
+    report["graph_bit_equal_to_eager"] = {}
+    for label, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        with fp32_parity():
+            d = gate_draws(0, SCAN_K)
+            eager = fresh(True)
+            step = make_gan_train_step(eager, compute_dtype=dtype)
+            rows = [step(reals[i], tuple(x[i] for x in d)) for i in range(SCAN_K)]
+            graphed = fresh(True)
+            got = make_gan_train_scan_step(graphed, compute_dtype=dtype)(reals, d)
+        for name in ("loss_gen", "loss_disc"):
+            bits_equal(got[name], torch.stack([r[name] for r in rows]))
+        a, b = tensors(graphed), tensors(eager)
+        if len(a) != len(b) or not graphed.step == eager.step == SCAN_K:
+            raise AssertionError(f"scan {label}: {len(a)} vs {len(b)} state tensors, steps "
+                                 f"{graphed.step}, {eager.step}")
+        for x, y in zip(a, b):
+            bits_equal(x, y)
+        report["graph_bit_equal_to_eager"][label] = {"steps": SCAN_K, "tensors": len(a)}
+
+    # 3. and 4. per mode: the gate over GATE_STEPS graphed steps, the timings
+    report["modes"] = {}
+    for mode, (dtype, precision) in modes.items():
+        rec = {}
+        with precision():
+            scan = make_gan_train_scan_step(fresh(True), compute_dtype=dtype)
+            t0 = time.perf_counter()
+            rows = [scan(reals, gate_draws(0, SCAN_K))]
+            torch.cuda.synchronize()
+            rec["first_call_s"] = time.perf_counter() - t0  # warm-up + capture + replay
+            rows += [scan(reals, gate_draws(i, SCAN_K))
+                     for i in range(SCAN_K, GATE_STEPS, SCAN_K)]
+            traj = torch.cat([torch.stack([r["loss_gen"], r["loss_disc"]], 1)
+                              for r in rows]).cpu().numpy()
+            step = make_gan_train_step(fresh(True), compute_dtype=dtype)
+            d = gate_draws(0, GATE_STEPS)
+            eager_traj = torch.stack([torch.stack([m["loss_gen"], m["loss_disc"]]) for m in (
+                step(real, tuple(x[i] for x in d)) for i in range(GATE_STEPS))]).cpu().numpy()
+            if precision is fp32_parity and not np.array_equal(traj, eager_traj):
+                raise AssertionError(f"scan gate: {mode} graphed losses differ from the eager "
+                                     "capturable steps' by "
+                                     f"{float(np.abs(traj - eager_traj).max())}")
+            if mode != "fp32":
+                diffs = [float(v) for v in np.abs(traj - traj32).mean(axis=0)]
+                if max(diffs) > TRAIN_GATE:
+                    raise AssertionError(f"scan gate: {mode} graphed mean |loss - loss_fp32| "
+                                         f"{diffs} > {TRAIN_GATE}")
+                rec["mean_abs_loss_diff_gen_disc"] = diffs
+                rec["eager_capturable_mean_abs_loss_diff_gen_disc"] = [
+                    float(v) for v in np.abs(eager_traj - traj32).mean(axis=0)]
+            rng = torch.Generator(device=device).manual_seed(SEED + 22)
+            eager_step = make_gan_train_step(fresh(True), compute_dtype=dtype)
+            rec["eager"] = profile_steps(eager_step, [(x, rng) for x in batches])
+            stacked = [(torch.stack([batches[(j + i) % len(batches)] for i in range(SCAN_K)]),
+                        rng) for j in range(5)]
+            timed = profile_steps(scan, stacked)
+        rec["graphed"] = {**timed, "wall_ms_per_step": timed["wall_ms_per_step"] / SCAN_K,
+                          "steps": timed["steps"] * SCAN_K}
+        for part in ("eager", "graphed"):
+            rec[part].pop("top_device_kernels", None)
+        report["modes"][mode] = rec
+    report["capture_failure"] = scan_capture_failure()
+    return report
+
+
+SCAN_CHILD = """
+import copy, sys, torch
+sys.path.insert(0, {root!r})
+from gan_discovery_pso_tpu_torch.core import AdamConfig
+from gan_discovery_pso_tpu_torch.models import DiscriminatorDef, GeneratorDef
+from gan_discovery_pso_tpu_torch.train.dcgan import (
+    _capture_steps, _draws, gan_init, make_gan_train_step)
+from gan_discovery_pso_tpu_torch.train.common import make_capturable
+dev = torch.device("cuda", 0)
+st = gan_init(torch.Generator().manual_seed(0), GeneratorDef(10, 1, 64), DiscriminatorDef(1, 64),
+              AdamConfig(lr=2e-4, beta1=0.5, beta2=0.999, epsilon=1e-8), device=dev)
+make_capturable(st.opt_g); make_capturable(st.opt_d)
+step = make_gan_train_step(st)
+real = torch.rand((2, 128, 1, 28, 28), device=dev) * 2 - 1
+g = torch.Generator(device=dev).manual_seed(0)
+d = [_draws(g, 128, 10, real[0], True) for _ in range(2)]
+inputs = (real, *(torch.stack(c) for c in zip(*d)))
+def syncing_steps(reals, noise, y_real, y_fake):
+    out = step(reals[0], (noise[0], y_real[0], y_fake[0]))
+    float(out["loss_gen"])  # a host read: not allowed while the stream is captured
+    return out["loss_gen"]
+before = [t.clone() for t in [*st.gen.state_dict().values(), *st.disc.state_dict().values()]]
+try:
+    _capture_steps(st, syncing_steps, inputs)
+    print("NO ERROR")
+except RuntimeError as e:
+    after = [*st.gen.state_dict().values(), *st.disc.state_dict().values()]
+    same = all(torch.equal(a, b) for a, b in zip(before, after)) and st.step == 0
+    print("RAISED", type(e.__cause__).__name__, "restored" if same else "NOT RESTORED")
+"""
+
+
+def scan_capture_failure() -> dict:
+    """In a child process on the card: a step that reads a loss on the host
+    while it is captured makes `_capture_steps` raise a RuntimeError (no
+    eager fallback) and leaves the state as it was before the warm-up."""
+    proc = subprocess.run([sys.executable, "-c", SCAN_CHILD.format(root=str(ROOT))],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or not last.startswith("RAISED") or not last.endswith(" restored"):
+        raise AssertionError(f"scan capture failure: rc {proc.returncode}, {last!r}, "
+                             f"{proc.stderr[-2000:]}")
+    return {"raised": last}
 
 
 def first_losses(run: dict) -> dict:
@@ -3321,6 +3572,72 @@ def remainder_phase(models, device, kernels, card: str, upstream: Path,
     return out
 
 
+DRIVER_LEGS = ("cae", "classifiers", "cnn_multipatient", "dcgan_z10", "pso_z10",
+               "pso_analysis_distance_z10")  # the short z-10 chain, in the driver's order
+DRIVER_ARGS = {"*": ["--limit", REDUCED_LIMIT],
+               **{leg: ["--epochs", "1"] for leg in ("cae", "cnn_multipatient", "dcgan_z10")}}
+
+
+def driver_phase(kernels, card: str, leg_args: dict = DRIVER_ARGS) -> dict:
+    """The port's experiment driver (`gan_discovery_pso_tpu_torch/tools/
+    run_experiment.py`) called in this process on the short z-10 chain
+    DRIVER_LEGS at the shipped widths, 1 epoch and --limit REDUCED_LIMIT
+    (`leg_args`), with `--fast-math` where the driver passes it: each leg a
+    subprocess of the port's CLI, rc 0, its wall printed; each leg's launches
+    of the port kernels read from the line the CLI writes into the leg's log
+    (`leg_launches`): B1 and B2 50 each in pso_z10 (8 classes x 32 x 50,
+    batched), B2 an evaluation's chunks in dcgan_z10, none elsewhere (the
+    names of `kernels` only; none where it is empty); a second invocation
+    runs no leg and records nothing. Returns each leg's launches."""
+    from gan_discovery_pso_tpu_torch.core import load_config
+    from gan_discovery_pso_tpu_torch.tools import run_experiment as rex
+
+    names = [k.__name__ for k in kernels]
+    iters = int(load_config(CFG).trainer_pso.n_iterations)
+    n_eval = -(-int(load_config(CFG).trainer_gan.batch_size) * 100 // 1280)
+    want = {"pso_z10": {"swarm_update": iters, "rescale01_rows": iters},
+            "dcgan_z10": {"rescale01_rows": n_eval}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp_name:
+        root = Path(tmp_name) / "experiments_torch"
+        walls, logs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rc = rex.main(only=set(DRIVER_LEGS), leg_args=leg_args, root=root)
+            walls.append(time.perf_counter() - t0)
+            if rc != 0:
+                raise AssertionError(f"experiment driver: rc {rc}")
+            recs = [json.loads(line) for line in (root / "timings.jsonl").read_text().splitlines()]
+            logs.append([Path(r["log"]).read_text() for r in recs])
+        if [(r["leg"], r["rc"]) for r in recs] != [(leg, 0) for leg in DRIVER_LEGS]:
+            raise AssertionError(f"experiment driver legs: {[(r['leg'], r['rc']) for r in recs]}")
+        if logs[0] != logs[1]:
+            raise AssertionError("experiment driver: the second invocation ran a leg")
+        out = {}
+        for leg, rec, text in zip(DRIVER_LEGS, recs, logs[0]):
+            got = leg_launches(text)
+            expect = {n: want.get(leg, {}).get(n, 0) for n in names}
+            seen = {n: got[n] for n in names}
+            if seen != expect:
+                raise AssertionError(f"experiment driver leg {leg}: launches {seen}, not {expect}")
+            out[f"driver {leg}"] = got
+            log(f"driver leg {leg}: rc 0, wall {rec['wall_s']} s, launches "
+                f"{json.dumps(got)} ({card})")
+    log(f"experiment driver: {len(DRIVER_LEGS)} legs in {walls[0]:.6f} s; the second "
+        f"invocation ran none in {walls[1]:.6f} s; phase {time.perf_counter() - t_phase:.6f} s "
+        f"({card})")
+    return out
+
+
+def leg_launches(text: str) -> dict:
+    """The kernel launches that a CLI stage wrote into its log
+    ("[<stage>] kernel launches: {...}", `cli/main.py _log_launches`)."""
+    found = re.findall(r"^\[[\w-]+\] kernel launches: (\{.*\})$", text, re.M)
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} kernel launch lines in a leg's log")
+    return json.loads(found[0])
+
+
 def main() -> int:
     try:
         import torch
@@ -3356,11 +3673,15 @@ def main() -> int:
     split_recs, split_to_time = check_split(models, device)
     records = [swarm_rec, rescale_rec, *split_recs]
 
+    from gan_discovery_pso_tpu_torch.ops import tf32_math
+
     evals = N_CLASSES * N_PARTICLES * N_ITERATIONS
     results = {}
-    for label, dtype in (("fp32", None), ("fp32", None), ("bf16", torch.bfloat16),
-                         ("bf16", torch.bfloat16)):
-        final, hist, seconds, launches = drive_main_path(models, device, dtype, KERNELS)
+    for label, dtype in (("fp32", None), ("fp32", None), ("tf32", None), ("tf32", None),
+                         ("bf16", torch.bfloat16), ("bf16", torch.bfloat16)):
+        # TF32: the CLI's --fast-math, fp32 models inside tf32_math()
+        with tf32_math() if label == "tf32" else contextlib.nullcontext():
+            final, hist, seconds, launches = drive_main_path(models, device, dtype, KERNELS)
         for name, count in launches.items():
             if count != N_ITERATIONS:
                 raise AssertionError(f"{label}: {name} launched {count} times, "
@@ -3376,13 +3697,17 @@ def main() -> int:
             f"({card}); launches {launches}; g_best {g.tolist()}")
     (g32a, _, launches32), (g32b, s32, _) = results["fp32"]
     g16, s16, _ = results["bf16"][1]
+    gtf, stf, _ = results["tf32"][1]
     if not torch.equal(g32a, g32b):
         raise AssertionError(f"two fp32 runs differ: {g32a.tolist()} vs {g32b.tolist()}")
-    gate = float((g32b - g16).abs().max())
-    if gate > GATE:
-        raise AssertionError(f"bf16 gate: max |g32 - g16| = {gate} > {GATE}")
-    log(f"fp32 runs identical; bf16 gate max |g32 - g16| = {gate:.3e} <= {GATE}")
-    log(f"evals/s warm: fp32 {evals / s32:.0f}, bf16 {evals / s16:.0f} ({card})")
+    gates = {mode: float((g32b - g).abs().max()) for mode, g in (("tf32", gtf), ("bf16", g16))}
+    for mode, gate in gates.items():
+        if gate > GATE:
+            raise AssertionError(f"{mode} gate: max |g32 - g_{mode}| = {gate} > {GATE}")
+    log(f"fp32 runs identical; TF32 gate max |g32 - g_tf32| = {gates['tf32']:.3e}, bf16 gate "
+        f"max |g32 - g16| = {gates['bf16']:.3e}, both <= {GATE}")
+    log(f"evals/s warm: fp32 {evals / s32:.0f}, tf32 {evals / stf:.0f}, bf16 {evals / s16:.0f} "
+        f"({card})")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pso_") as keep:
         pso_interim, upstream = Path(keep) / "batched", Path(keep) / "assessor"
         dim2_interim, ood_interim = Path(keep) / "dim2", Path(keep) / "ood"
@@ -3392,8 +3717,11 @@ def main() -> int:
                                            keep_g_best=seq_g_best)
         pipeline_launches.update(inverter_phase(models, device, KERNELS, card,
                                                 keep_interim=ood_interim))
+        # its epochs cut to --limit REDUCED_LIMIT's images (the widths as
+        # shipped) to make room for the experiment driver's phase
         pipeline_launches.update(inverter_training_phase(models, device, KERNELS, card,
-                                                         pso_interim))
+                                                         pso_interim,
+                                                         flags=("--limit", REDUCED_LIMIT)))
         pipeline_launches.update(assessor_eval_phase(models, device, KERNELS, card,
                                                      keep_upstream=upstream))
         pipeline_launches.update(gan_vqvae_phase(models, device, KERNELS, card, upstream,
@@ -3420,6 +3748,7 @@ def main() -> int:
         pipeline_launches.update(parallel_phase(models, device, all_kernels, card, seq_g_best))
         pipeline_launches.update(remainder_phase(models, device, all_kernels, card, upstream,
                                                  pso_interim))
+    pipeline_launches.update(driver_phase(all_kernels, card))
 
     for rec in records:
         # the split halves' path is the sharded stage: rank 0's count there

@@ -62,12 +62,18 @@ package's `cae`, `classifiers`, `dcgan`, `cnn-multipatient`, `inverter` and
 step (`train/dcgan.py`). The stages run on the card; `--device cpu` is the
 port's counterpart of `JAX_PLATFORMS=cpu`.
 
-`--fast-math`: pso-discovery and pso-inverter run the swarm's forwards in
-bf16 copies of the models; the training stages (cae, classifiers, cnn,
-cnn-multipatient, dcgan, inverter, both regularize stages, vqvae,
-pixelcnn-prior) and pso-inverter's fine-tune run inside
-`ops.precision.tf32_math()`, the card's counterpart of the JAX package's
-whole-stage DEFAULT precision; `export-model` exports the bf16 copies.
+`--fast-math` runs every stage that runs a model (`TF32_STAGES`: cae,
+classifiers, cnn, cnn-multipatient, dcgan, pso-discovery, pso-inverter,
+iid-extract, ood-extract, inverter, both regularize stages, vqvae,
+pixelcnn-prior) inside `ops.precision.tf32_math()`, the card's counterpart
+of the JAX CLI's whole-stage `fast_math()`: the models, their parameters
+and activations stay fp32 and their convs and matmuls multiply in TF32, as
+JAX's DEFAULT precision multiplies fp32 parameters in bf16 passes. A
+sweep's legs and the ranks of `--shard-swarm` go through the same rule.
+`export-model --fast-math` exports the fp32 models under the policy
+"tf32", which a loaded artifact enters at each call. The swarm's bf16 model
+copies are a programmatic option only (`fast_math_dtype=torch.bfloat16`),
+as in the JAX package's `run_pso_discovery_batched`.
 
 `--path-cnn` is read by `inverter` only for
 `trainer_inverter.training_function=pix_fea_rec_adv`; `--path-pso` is the
@@ -117,10 +123,10 @@ INVERSION_STAGES = ("regularize-inverter", "regularize-inverter-statistics")
 # stages that build a model from the data alone (no upstream checkpoint but
 # the classifiers' --path-cae)
 MODEL_STAGES = ("cae", "classifiers", "cnn", "cnn-multipatient")
-# stages that train, optimise by gradients or build the evaluation battery:
-# --fast-math runs them inside ops.precision.tf32_math()
-TF32_STAGES = (*MODEL_STAGES, "dcgan", "inverter", *INVERSION_STAGES, "vqvae",
-               "pixelcnn-prior")
+# the stages that run a model: --fast-math runs each inside
+# ops.precision.tf32_math() with fp32 models (JAX: fast_math() over the stage)
+TF32_STAGES = (*MODEL_STAGES, "dcgan", "pso-discovery", "pso-inverter", "iid-extract",
+               "ood-extract", "inverter", *INVERSION_STAGES, "vqvae", "pixelcnn-prior")
 
 
 def _parse_set(values):
@@ -143,8 +149,8 @@ def _add_common(p):
                    help="tiny-config smoke run (small models and swarms)")
     p.add_argument("--limit", type=int, default=None, help="cap images per dataset")
     p.add_argument("--fast-math", action="store_true",
-                   help="the swarm's model forwards in bf16 (the swarm math stays "
-                        "fp32), training in TF32, instead of the fp32-parity default")
+                   help="run the stage's fp32 models with TF32 convs and matmuls "
+                        "instead of the fp32-parity default")
     p.add_argument("--device", default="cuda",
                    help="torch device of the stage (default: the CUDA card; "
                         "'cpu' runs the plain PyTorch path)")
@@ -366,12 +372,12 @@ def _export_model(args):
         overrides = {**_TINY, **overrides}
     cfg = load_config(args.cfg, overrides=overrides)
     data_cfg = DataConfig.from_config(cfg.data)
-    dtype = torch.bfloat16 if args.fast_math else None
+    policy = "tf32" if args.fast_math else "fp32_parity"
     with gpu_lock("cli:export-model", device=args.device):
         gen = load_gan(args.path_gan, device=args.device)
         if args.what == "generator":
             out = export_generator(gen, z_dim=int(cfg.trainer_gan.z_dim), batch=args.batch,
-                                   path=args.out, platforms=args.platforms, dtype=dtype)
+                                   path=args.out, platforms=args.platforms, policy=policy)
         else:
             iid = tuple(data_cfg.iid_classes)
             rdef, _init, _apply = assessor_factory(cfg, data_cfg, len(iid))
@@ -387,7 +393,7 @@ def _export_model(args):
             out = export_discovery_fitness(gen, cnn, class_idx=c2i[label],
                                            dim_space=int(cfg.trainer_pso.dim_space),
                                            batch=args.batch, path=args.out,
-                                           platforms=args.platforms, dtype=dtype)
+                                           platforms=args.platforms, policy=policy)
     print(f"[export-model] {args.what} -> {out}")
     return 0
 
@@ -453,7 +459,6 @@ def _run_stage(args, argv) -> int:
     from gan_discovery_pso_tpu_torch.ops.precision import tf32_math
 
     stage = args.stage
-    fast_math = torch.bfloat16 if args.fast_math else None
     precision = (tf32_math() if args.fast_math and stage in TF32_STAGES
                  else contextlib.nullcontext())
     writer = shards is None or torch.distributed.get_rank() == 0
@@ -498,7 +503,7 @@ def _run_stage(args, argv) -> int:
             gen = _load_gan(args, ctx)
             cnn, rdef = _load_cnn(args, ctx)
             P.run_pso_discovery(ctx, gen, cnn, rdef, batch_classes=args.batch_classes,
-                                shard_devices=shards, fast_math_dtype=fast_math)
+                                shard_devices=shards)
         elif stage == "inverter":
             gen = _load_gan(args, ctx)
             cnn = None
@@ -552,10 +557,25 @@ def _run_stage(args, argv) -> int:
                                           "models dir of an inverter run"), device=ctx.device)
             cnn, rdef = _load_cnn(args, ctx)
             P.run_pso_inverter(ctx, gen, enc, cnn, rdef, ood_patient=args.ood_patient,
-                               fine_tune_epochs=_epochs(args), fast_math_dtype=fast_math)
+                               fine_tune_epochs=_epochs(args))
+        if writer:
+            _log_launches(stage)
     if writer:
         print(f"[{stage}] done → {ctx.run.reports_dir}")
     return 0
+
+
+def _log_launches(stage: str) -> None:
+    """This process's launches of each port kernel, one line in the stage's
+    log: how a parent that ran the stage as a subprocess (the experiment
+    driver) reads them. A sharded run's ranks are in the line that
+    `pipelines/pso_discovery.py _log_launches` writes."""
+    import json
+
+    from gan_discovery_pso_tpu_torch.ops.kernels import KERNELS, SPLIT_KERNELS
+
+    print(f"[{stage}] kernel launches: "
+          + json.dumps({k.__name__: k.launches for k in (*KERNELS, *SPLIT_KERNELS)}))
 
 
 def _refuse_shards(args) -> str | None:

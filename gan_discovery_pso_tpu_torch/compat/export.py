@@ -26,9 +26,13 @@ generator artifact needs no operator of this package.
 a torch program does not: the precision of its convs and matmuls is the
 loading process's global backend setting, and PyTorch's default on the card
 is TF32 convs. So the artifact names its policy in an extra file
-(`precision`: "fp32_parity", or "bf16" for the bf16 model copies of
-`--fast-math`), and `load_exported` enters that policy (`ops.precision
-.POLICIES`) around every call.
+(`precision`: "fp32_parity"; "tf32" for `export-model --fast-math`, the
+JAX CLI's trace under `fast_math()`), and `load_exported` enters that policy
+(`ops.precision.POLICIES`) around every call. Both exporters trace fp32
+models; an artifact that an earlier version wrote from bf16 model copies
+under "bf16" still loads. The trace itself runs on the CPU, where TF32
+changes nothing: the policy takes effect when the artifact is called on the
+card.
 
 **Devices.** The models are traced from CPU copies and the artifact holds
 CPU weights. `load_exported(path, device)` moves the program to `device`
@@ -55,7 +59,7 @@ from torch import nn
 
 from gan_discovery_pso_tpu_torch.core.device import resolve_device
 from gan_discovery_pso_tpu_torch.ops import kernels  # registers gdpt::rescale01_rows
-from gan_discovery_pso_tpu_torch.ops.precision import POLICIES, cast_model
+from gan_discovery_pso_tpu_torch.ops.precision import POLICIES
 
 PLATFORMS = ("cuda", "cpu")
 POLICY_FILE = "precision"
@@ -70,8 +74,8 @@ def check_platforms(platforms) -> None:
             "artifact serves both; the port has no TPU lowering)")
 
 
-def _frozen_cpu_copy(model: nn.Module, dtype: torch.dtype | None) -> nn.Module:
-    model = cast_model(copy.deepcopy(model).cpu().eval(), dtype)
+def _frozen_cpu_copy(model: nn.Module) -> nn.Module:
+    model = copy.deepcopy(model).cpu().eval()
     for p in model.parameters():
         p.requires_grad_(False)
     return model
@@ -138,30 +142,29 @@ def _generator(z, gen):
 
 
 def export_generator(gen: nn.Module, z_dim: int, batch: int, path: str | Path,
-                     platforms=None, dtype: torch.dtype | None = None) -> Path:
-    """The generator's eval forward as an artifact; dtype=torch.bfloat16
-    exports its bf16 copy (`--fast-math`)."""
-    module = _Call(_generator, gen=_frozen_cpu_copy(gen, dtype))
+                     platforms=None, policy: str = "fp32_parity") -> Path:
+    """The generator's eval forward as an artifact, run under `policy`
+    ("tf32": `export-model --fast-math`)."""
+    module = _Call(_generator, gen=_frozen_cpu_copy(gen))
     return export_callable(module, (torch.zeros((batch, z_dim, 1, 1)),), path, platforms,
-                           policy="fp32_parity" if dtype is None else "bf16")
+                           policy=policy)
 
 
 def export_discovery_fitness(
     gen: nn.Module, assessor: nn.Module, class_idx: int, dim_space: int, batch: int,
     path: str | Path, control: str = "optimize_out_training", threshold: float = 0.0,
-    eps: float = 0.1, platforms=None, dtype: torch.dtype | None = None,
+    eps: float = 0.1, platforms=None, policy: str = "fp32_parity",
 ) -> Path:
     """The discovery fitness (`apply_discovery_fitness` at the logit column
-    `class_idx`) as an artifact, its rescale the registered B2 operator;
-    dtype=torch.bfloat16 exports the bf16 model copies (`--fast-math`)."""
+    `class_idx`) as an artifact, its rescale the registered B2 operator, run
+    under `policy` ("tf32": `export-model --fast-math`)."""
     from gan_discovery_pso_tpu_torch.pso.fitness import apply_discovery_fitness
 
     def fitness(pos, gen, assessor):
         return apply_discovery_fitness(pos, gen, assessor, class_idx, control=control,
-                                       threshold=threshold, eps=eps, dtype=dtype,
+                                       threshold=threshold, eps=eps,
                                        rescale=kernels.rescale01_per_sample_op)
 
-    module = _Call(fitness, gen=_frozen_cpu_copy(gen, dtype),
-                   assessor=_frozen_cpu_copy(assessor, dtype))
+    module = _Call(fitness, gen=_frozen_cpu_copy(gen), assessor=_frozen_cpu_copy(assessor))
     return export_callable(module, (torch.zeros((batch, dim_space)),), path, platforms,
-                           policy="fp32_parity" if dtype is None else "bf16")
+                           policy=policy)

@@ -8,20 +8,25 @@ for convolutions and matmuls. It also pins cuDNN to deterministic algorithm
 choices, so that two fp32 runs with the same seed give identical results.
 
 `tf32_math()` is the card's counterpart of the JAX package's `fast_math()`
-over a whole stage (`cli/main.py:340-350`): there the multiplies drop to
-bf16 passes while accumulation, storage, parameters and optimizer state stay
-fp32; here convs and matmuls multiply in TF32, which is the same shape of
-change. Inside it, `fp32_parity()` (which the stages enter around their
-training loops) keeps the TF32 settings, as JAX's DEFAULT precision wins
-over the HIGHEST default while `fast_math()` is on.
+over a whole stage (`cli/main.py:340-350`), which the port's CLI enters for
+every stage that runs a model under `--fast-math`: there the multiplies drop
+to bf16 passes while accumulation, storage, parameters and optimizer state
+stay fp32; here convs and matmuls multiply in TF32, which is the same shape
+of change. Inside it, `fp32_parity()` (which the stages and the runners
+enter around their models) keeps the TF32 settings, as JAX's DEFAULT
+precision wins over the HIGHEST default while `fast_math()` is on.
 
 The bf16 mode of the swarm is not a global switch: the runner casts copies
 of the models to bf16 once per call (`cast_model`), and the swarm math
-stays fp32. It runs under the process's own settings, which `tf32_math()`
+stays fp32. It is asked for by a caller (`fast_math_dtype=torch.bfloat16`,
+as the JAX package's `run_pso_discovery_batched` takes a dtype), never by
+the CLI, and runs under the process's own settings, which `tf32_math()`
 keeps but for TF32.
 
 `POLICIES` names each policy's context, so that an exported artifact
-(`compat/export.py`) can carry its policy's name and a loader enter it.
+(`compat/export.py`) can carry its policy's name and a loader enter it:
+"fp32_parity", "tf32" (fp32 models, `export-model --fast-math`) and "bf16"
+(the bf16 model copies, kept so that such artifacts still load).
 """
 
 from __future__ import annotations
@@ -89,6 +94,6 @@ def tf32_enabled() -> bool:
     return _TF32.get()
 
 
-# policy name -> the context it runs under; "bf16" artifacts hold bf16 copies
-# of the models, whose convs TF32 does not touch
-POLICIES = {"fp32_parity": fp32_parity, "bf16": tf32_math}
+# policy name -> the context it runs under; "tf32" artifacts hold fp32
+# models, "bf16" ones bf16 copies, whose convs TF32 does not touch
+POLICIES = {"fp32_parity": fp32_parity, "tf32": tf32_math, "bf16": tf32_math}

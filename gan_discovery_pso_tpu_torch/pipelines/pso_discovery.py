@@ -128,7 +128,9 @@ def run_pso_discovery(
     The sequential loop over classes, one B = 1 runner for all of them;
     batch_classes=True runs every class's swarm in one batch
     (`run_pso_discovery_batched`). fast_math_dtype=torch.bfloat16 runs the
-    forwards in bf16 (the swarm math stays fp32). shard_devices=N runs each
+    forwards on bf16 model copies (the swarm math stays fp32), a caller's
+    option as in the JAX package's batched stage; the CLI's `--fast-math`
+    instead runs the stage inside `tf32_math()` with fp32 models. shard_devices=N runs each
     class's swarm sharded over the N ranks of the process group this
     process belongs to (module docstring); rank 0 writes."""
     if batch_classes and shard_devices:

@@ -65,7 +65,6 @@ to code indices with that model and trains the Gated PixelCNN on them.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import pickle
 import time
@@ -131,7 +130,7 @@ from gan_discovery_pso_tpu_torch.models import (
 from gan_discovery_pso_tpu_torch.models.pixelcnn import PixelCNN, PixelCNNDef, pixelcnn_loss
 from gan_discovery_pso_tpu_torch.models.vqvae import VQVAEGan, VQVAEGanDef
 from gan_discovery_pso_tpu_torch.ops import postprocess_uint8
-from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity, tf32_math
+from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
 from gan_discovery_pso_tpu_torch.pipelines.context import StageContext
 from gan_discovery_pso_tpu_torch.pipelines.pso_discovery import (
     _writable,
@@ -1039,9 +1038,12 @@ def run_pso_inverter(
     encoder. Returns (the swarm as a B = 1 SwarmResult on the host, the
     binary assessor).
 
-    fast_math_dtype=torch.bfloat16 runs the swarm's forwards in bf16 and the
-    fine-tune inside `tf32_math()` (the JAX stage's whole-stage DEFAULT
-    precision covers it); the encoder stays fp32. draws=(velocities [n, d], r1
+    The stage runs under its caller's precision: the CLI's `--fast-math`
+    runs all of it, fine-tune and swarm, inside `tf32_math()` with fp32
+    models, as the JAX CLI runs the stage under `fast_math()`.
+    fast_math_dtype=torch.bfloat16 (a caller's option; the JAX stage takes no
+    dtype) runs the swarm's forwards on bf16 copies of G and the assessor;
+    the encoder stays fp32. draws=(velocities [n, d], r1
     [iters, n], r2 [iters, n]) replaces the swarm's draws from the stream
     `pso` (parity tests feed the JAX package's)."""
     cfg = ctx.cfg
@@ -1064,8 +1066,7 @@ def run_pso_inverter(
     else:
         epochs = (fine_tune_epochs if fine_tune_epochs is not None
                   else int(cfg.trainer_pso_inverter.epochs))
-        with tf32_math() if fast_math_dtype is not None else contextlib.nullcontext():
-            fine, cnn_history = _fine_tune(ctx, assessor, bdef, ood_patient, epochs)
+        fine, cnn_history = _fine_tune(ctx, assessor, bdef, ood_patient, epochs)
     phase1_s = time.perf_counter() - t_phase1
 
     # --- phase 2: the encoder-seeded swarm over the patient's slices

@@ -42,6 +42,18 @@ def make_optimizer(cfg: AdamConfig, params, name: str | None = None) -> torch.op
     raise ValueError(name)
 
 
+def make_capturable(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
+    """`optimizer` (Adam or RMSprop) switched in place to `capturable=True`,
+    so that its step can be recorded in a CUDA graph: the step counts move
+    to the parameters' device and the bias correction is computed there."""
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+    for p, st in optimizer.state.items():
+        if torch.is_tensor(st.get("step")):
+            st["step"] = st["step"].to(p.device, torch.float32)
+    return optimizer
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy on int labels (torch CrossEntropyLoss)."""
     return F.cross_entropy(logits.float(), labels.long())

@@ -44,9 +44,22 @@ made the DCGAN's images constant, ROADMAP §C), so the BN batch statistics
 are computed in fp32 and the running statistics are written back in fp32;
 the logits and losses are fp32.
 
-`make_gan_train_scan_step` (:160, K steps as one XLA program) is not
-ported: K calls of the step are the same computation, and the JAX package's
-own test holds the two equal (`tests/test_train.py:456`).
+K steps as one program (`make_gan_train_scan_step`, JAX :160-188, which
+scans K steps into one XLA program so that K − 1 dispatches disappear): on
+the card the K steps are captured once as one `torch.cuda.CUDAGraph` over
+static input buffers and replayed per call after the reals and the draws
+are copied in, since the step at batch 128 is bound by the host's launches.
+The optimizers step inside the graph, so the state's Adam or RMSprop is
+switched to `capturable=True` (`train/common.py make_capturable`): its step
+count lives on the card and its bias correction is computed there, which
+the state's checkpoint tree reads and writes as before. Capture runs
+warm-up steps for real, so the whole state (weights, BN statistics,
+optimizer state, the step count) is snapshotted before and restored after;
+a failed capture raises. The graph binds the state's tensors: replacing
+them (`load_tree` after a scan) needs a new scan step. On the CPU the scan
+is the plain loop of K eager steps. The data-parallel step is not scanned
+(the JAX scan step never runs under a mesh; ROADMAP A21), and `run_dcgan`
+keeps the eager step, as the JAX stage does.
 
 The sampler: the reference synthesised ONE image per DataLoader item
 (src/utils/util_data.py:422-445); here a batch of z goes through the frozen
@@ -82,11 +95,14 @@ from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
 from gan_discovery_pso_tpu_torch.train.common import (
     bce_from_logits,
     frozen,
+    make_capturable,
     make_optimizer,
     optimizer_step,
     smooth_negative,
     smooth_positive,
 )
+
+SCAN_WARMUP = 3  # steps run on a side stream before the capture, then undone
 
 
 @dataclasses.dataclass
@@ -199,6 +215,130 @@ def make_gan_train_step(state: GanTrainState, label_smoothing: bool = True, grou
         return {"loss_gen": losses[0], "loss_disc": losses[1]}
 
     return train_step
+
+
+def make_gan_train_scan_step(state: GanTrainState, label_smoothing: bool = True,
+                             compute_dtype: torch.dtype | None = None, group=None):
+    """scan_step(reals [K, B, C, H, W], draws) → {'loss_gen': [K],
+    'loss_disc': [K]}: K train steps of `make_gan_train_step` (same
+    arguments) as one CUDA graph on the card, K eager steps on the CPU;
+    `state.step` goes up by K. `draws` is a triple (noise [K, B, z, 1, 1],
+    ỹ₁ [K, B], ỹ₀ [K, B]) or a `torch.Generator`, from which exactly what K
+    calls of the step would draw is drawn, in the same order, outside the
+    graph. A graph is captured at the first call of each input shape (see
+    the module docstring)."""
+    if group is not None:
+        raise ValueError("make_gan_train_scan_step: no data-parallel scan (group=); the JAX "
+                         "scan step never runs under a mesh (ROADMAP A21)")
+    step = make_gan_train_step(state, label_smoothing, compute_dtype=compute_dtype)
+    z_dim = state.gen.gen[0][0].in_channels
+
+    def draws_of(draws, reals) -> tuple:
+        if not isinstance(draws, torch.Generator):
+            return tuple(t.to(reals.device, reals.dtype) for t in draws)
+        rows = [_draws(draws, reals.shape[1], z_dim, real, label_smoothing) for real in reals]
+        return tuple(torch.stack(col) for col in zip(*rows))
+
+    def steps(reals, noise, y_real, y_fake) -> torch.Tensor:
+        rows = []
+        for i in range(reals.shape[0]):
+            m = step(reals[i], (noise[i], y_real[i], y_fake[i]))
+            rows.append(torch.stack([m["loss_gen"], m["loss_disc"]]))
+        return torch.stack(rows)
+
+    def losses(rows: torch.Tensor) -> dict:
+        return {"loss_gen": rows[:, 0], "loss_disc": rows[:, 1]}
+
+    if next(state.gen.parameters()).device.type != "cuda":
+        def scan_step(reals: torch.Tensor, draws) -> dict:
+            return losses(steps(reals, *draws_of(draws, reals)))
+
+        return scan_step
+
+    make_capturable(state.opt_g)
+    make_capturable(state.opt_d)
+    graphs = {}
+
+    def scan_step(reals: torch.Tensor, draws) -> dict:
+        inputs = (reals, *draws_of(draws, reals))
+        key = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        if key not in graphs:
+            graphs[key] = _capture_steps(state, steps, inputs)
+        graph, static, out, bound = graphs[key]
+        now = _state_tensors(state)
+        if len(now) != len(bound) or any(a is not b for a, b in zip(now, bound)):
+            raise RuntimeError("the GAN train state's tensors were replaced after the scan "
+                               "step's graph was captured (load_tree does this): make a new "
+                               "scan step")
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        graph.replay()
+        state.step += reals.shape[0]
+        return losses(out.clone())
+
+    return scan_step
+
+
+def _state_tensors(state: GanTrainState) -> list:
+    """Every tensor of the train state: parameters, buffers, optimizer
+    state."""
+    out = [*state.gen.parameters(), *state.gen.buffers(), *state.disc.parameters(),
+           *state.disc.buffers()]
+    for opt in (state.opt_g, state.opt_d):
+        for st in opt.state.values():
+            out += [v for v in st.values() if torch.is_tensor(v)]
+    return out
+
+
+def snapshot_state(state: GanTrainState):
+    """What `restore_state` needs to put `state` back as it is now."""
+    with torch.no_grad():
+        saved = [(t, t.detach().clone()) for t in _state_tensors(state)]
+    had = [{p for p in opt.state} for opt in (state.opt_g, state.opt_d)]
+    return saved, had, state.step
+
+
+def restore_state(state: GanTrainState, snapshot) -> None:
+    """`state` as `snapshot_state` saw it, in place (the same tensors): the
+    optimizer entries made since are zeroed, which is a fresh optimizer's
+    state (zero moments, step 0)."""
+    saved, had, step = snapshot
+    with torch.no_grad():
+        for t, value in saved:
+            t.copy_(value)
+        for opt, before in zip((state.opt_g, state.opt_d), had):
+            for p, st in opt.state.items():
+                if p not in before:
+                    for v in st.values():
+                        if torch.is_tensor(v):
+                            v.zero_()
+    state.step = step
+
+
+def _capture_steps(state: GanTrainState, steps, inputs: tuple) -> tuple:
+    """(graph, static inputs, static losses, the state's tensors): `steps`
+    on static copies of `inputs` captured as one CUDA graph after
+    SCAN_WARMUP warm-up calls on a side stream; the state as it was before
+    the warm-up is restored whether the capture succeeds or fails."""
+    static = [t.clone() for t in inputs]
+    snapshot = snapshot_state(state)
+    try:
+        side = torch.cuda.Stream(static[0].device)
+        side.wait_stream(torch.cuda.current_stream(static[0].device))
+        with torch.cuda.stream(side):
+            for _ in range(SCAN_WARMUP):
+                steps(*static)
+        torch.cuda.current_stream(static[0].device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = steps(*static)
+        except Exception as e:
+            raise RuntimeError(f"capturing {static[0].shape[0]} GAN steps as a CUDA graph "
+                               f"failed: {e}") from e
+    finally:
+        restore_state(state, snapshot)
+    return graph, static, out, _state_tensors(state)
 
 
 def _broadcast_modules(modules, group) -> None:

@@ -367,18 +367,36 @@ def test_program_key_chooses_nothing_on_the_port(upstream, port_models, stages, 
             assert torch.equal(x, y), name
 
 
-@pytest.mark.parametrize("flags", [["--batch-classes"], [], ["--batch-classes", "--fast-math"]],
-                         ids=["batched", "sequential", "bf16"])
-def test_cli_runs_the_stage_on_files_jax_wrote(upstream, flags, capsys):
+@pytest.mark.parametrize("mode", ["batched", "sequential", "bf16", "bf16_sequential"])
+def test_cli_runs_the_stage_on_files_jax_wrote(upstream, mode, capsys):
+    """pso-discovery on the JAX package's files, batched and sequential:
+    through the port's CLI in fp32, and as a caller asks for the swarm's
+    bf16 model copies (`fast_math_dtype=torch.bfloat16`, which the CLI
+    never passes: its --fast-math is TF32 on the fp32 models). Each writes
+    every class's particle files and plots, and g_best in range."""
     dirs = upstream["dirs"]
-    root = upstream["root"] / ("cli_" + "_".join(f.strip("-") for f in flags))
-    rc = cli_main(["pso-discovery", "--cfg", CFG, "--tiny", "--device", "cpu", *flags,
-                   "--path-gan", str(dirs["gan"]), "--path-cnn", str(dirs["cnn2"]), "--set",
-                   "data.iid_classes=[0,2]",
-                   *(f"data.{k}_dir={root / k}" for k in ("reports", "model", "interim"))])
-    assert rc == 0
+    root = upstream["root"] / f"cli_{mode}"
+    batch = not mode.endswith("sequential")
+    if mode.startswith("bf16"):
+        ctx = StageContext.create(CFG, "pso_discovery", device="cpu", overrides={
+            **TINY, "data.iid_classes": [0, 2],
+            **{f"data.{k}_dir": str(root / k) for k in ("reports", "model", "interim")}})
+        rdef = assessor_factory(ctx.cfg, ctx.data_cfg, 2)[0]
+        run_pso_discovery(ctx, load_gan(dirs["gan"], device="cpu"),
+                          load_cnn(dirs["cnn2"], rdef, device="cpu"), rdef,
+                          batch_classes=batch, fast_math_dtype=torch.bfloat16)
+    else:
+        assert cli_main(["pso-discovery", "--cfg", CFG, "--tiny", "--device", "cpu",
+                         *(["--batch-classes"] if batch else []),
+                         "--path-gan", str(dirs["gan"]), "--path-cnn", str(dirs["cnn2"]),
+                         "--set", "data.iid_classes=[0,2]",
+                         *(f"data.{k}_dir={root / k}" for k in ("reports", "model", "interim"))
+                         ]) == 0
     reports = root / "reports" / "mnist" / "00001--pso_discovery"
-    assert capsys.readouterr().out.strip().splitlines()[-1] == f"[pso-discovery] done → {reports}"
+    if not mode.startswith("bf16"):  # the CLI's last line and its log's tee
+        assert capsys.readouterr().out.strip().splitlines()[-1] == (
+            f"[pso-discovery] done → {reports}")
+        assert (reports / "log.txt").exists()
     interim = root / "interim" / "mnist" / "00001--pso_discovery"
     for label in (0, 2):
         traj = jax_io.load_particle_trajectories(interim, label)
@@ -396,4 +414,4 @@ def test_cli_runs_the_stage_on_files_jax_wrote(upstream, flags, capsys):
     with open(reports / "general" / "overall_history.pkl", "rb") as f:
         g = np.asarray([h["global_best_val"][-1] for h in pickle.load(f).values()])
     assert np.isfinite(g).all() and (g >= EPS).all() and (g <= 1 + EPS).all()
-    assert (reports / "timing.json").exists() and (reports / "log.txt").exists()
+    assert (reports / "timing.json").exists()
