@@ -16,7 +16,11 @@ CLI's `--fast-math`: fp32 models inside `tf32_math()`) and in bf16, checks
 that every kernel of the path launched once per iteration, profiles one
 fp32 and one bf16 run, checks the results (finite, in [eps, 1+eps],
 reproducible, the TF32 and bf16 gates, agreement with the CPU path on a small
-input), runs the pso-discovery stage through its CLI on JAX-format
+input), holds the products that the JAX package pins at HIGHEST (the FID's
+covariance and square root, the KNN battery's and the VQ codes' distances,
+the swarm's mean pairwise distance) in full fp32 under `tf32_math()` at the
+trained chain's sizes, against the CPU and beside the JAX package's values
+(the HIGHEST phase), runs the pso-discovery stage through its CLI on JAX-format
 checkpoints of the same models (the pipeline phase, between the main-path
 runs and the first profiler session: batched fp32 bit-equal to the runner,
 sequential, the shipped dimension 2 with its landscape, `--fast-math`
@@ -26,7 +30,8 @@ seeded encoder f=64 z=100 beside G and the ResNet-50 as JAX-format
 checkpoints, a 1-epoch fine-tune of the re-headed binary assessor on the
 synthetic digits, 256 encoder-seeded particles x 50 iterations; the
 try-load rerun and the runner called directly bit-equal to it; bf16; the
-stage under `tf32_math()` held to the gate; 5 fine-tune steps profiled),
+stage under `tf32_math()` held to the gate, its swarm's mean pairwise
+distance held to the CPU's at every iteration; 5 fine-tune steps profiled),
 runs the inverter and the two regularize stages through their CLI (the
 inverter training phase: 1-epoch pix_fea_rec_adv, pix_rec and AttGAN runs
 at the shipped widths on the same checkpoints and --limit 2048 images, each
@@ -1147,6 +1152,9 @@ def inverter_phase(models, device, kernels, card: str, sets=(),
             raise AssertionError(f"inverter --fast-math (TF32) gate: |g_best fp32 - tf32| "
                                  f"{tf32_diff} > {GATE}")
         timings["tf32"] = stage_numbers(ctx.run.reports_dir)
+        # the swarm's mean pairwise distance, which the JAX package takes at
+        # HIGHEST under fast_math() too: each iteration's against the CPU
+        spread = swarm_spread_check(tf32, "inverter --fast-math (TF32)")
 
         # 7. where the fine-tune's time goes: a few of its steps profiled
         tune = profile_fine_tune(fine, ctx.dataset("train", classes=bdef.iid_classes,
@@ -1161,6 +1169,8 @@ def inverter_phase(models, device, kernels, card: str, sets=(),
         f"(trajectories, velocities, g_best); encoder card vs CPU {enc_diff:.3e} (rtol 1e-4); "
         f"|g_best fp32 - bf16| {bf16_diff:.3e} (not gated); |g_best fp32 - tf32| "
         f"{tf32_diff:.3e} (<= {GATE})")
+    log(f"inverter --fast-math (TF32): the swarm's mean pairwise distance against the CPU "
+        f"({card}): " + json.dumps(spread))
     for label, t in timings.items():
         stage = f"stage {t['stage_s']:.6f} s, " if "stage_s" in t else ""
         tuned = (f" (data {t['data_s']:.6f} s, training {t['train_s']:.6f} s)"
@@ -3638,6 +3648,134 @@ def leg_launches(text: str) -> dict:
     return json.loads(found[0])
 
 
+# the products the JAX package pins at Precision.HIGHEST, which its
+# `fast_math()` leaves full fp32, held under the CLI's --fast-math
+HIGHEST_SEED = 12
+HIGHEST_SIZES = {"real": 3222, "synthetic": 12800, "battery": 10192, "swarm": 256, "codes": 256}
+# the JAX package's values on highest_inputs(), computed and held by
+# tests/test_torch_port_stage_parity.py::test_chip_smoke_highest_inputs_match_jax
+JAX_HIGHEST = {"fid": 0.16944503784179688, "mean_pairwise_distance": 0.21365852653980255}
+FID_TRACE_RTOL = 1e-5  # |card - CPU| over tr(Σr) + tr(Σs): fp32 sums in another order
+# fp32's cancellation in ‖a‖² + ‖b‖² − 2a·b; TF32 moves the distance ~1e-3
+DISTANCE_RTOL = 1e-4
+
+
+def swarm_spread_check(res, what: str) -> dict:
+    """A swarm run's mean pairwise distance at every iteration against the
+    port's on the CPU from the run's own positions, within DISTANCE_RTOL
+    (`mean_pairwise_distance` keeps full fp32 under `--fast-math`, as the
+    JAX package's HIGHEST does)."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.pso.swarm import mean_pairwise_distance
+
+    pos = res.history.positions[0].cpu()  # [T, N, d]
+    want = mean_pairwise_distance(pos).double()
+    got = res.history.mean_mse[0].double().cpu()
+    err = float(((got - want).abs() / want.abs()).max())
+    if err > DISTANCE_RTOL:
+        raise AssertionError(f"{what}: mean pairwise distance {err:.3e} from the CPU's "
+                             f"(> {DISTANCE_RTOL})")
+    return {"iterations": int(got.numel()), "first": float(got[0]), "last": float(got[-1]),
+            "max_rel_err": err}
+
+
+def highest_inputs(seed: int = HIGHEST_SEED) -> dict:
+    """Seeded inputs at the trained chain's sizes: CAE embeddings of the
+    3,222 IiD test images and of a dcgan evaluation's 12,800 samples (a
+    total variance of ~17, the card's CAEs'), the battery's 10,192 rows
+    with the 8 IiD labels, an encoder-seeded swarm of 256 latents of one
+    patient (z 10) as close together as a converged swarm, and 256 VQ codes
+    at embedding 100 with 3,222 queries."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+    iid = np.asarray((0, 2, 3, 4, 6, 7, 8, 9))
+    return {
+        "real": (rs.randn(HIGHEST_SIZES["real"], 10) * 1.3).astype(f32),
+        "synthetic": (rs.randn(HIGHEST_SIZES["synthetic"], 10) * 1.25 + 0.1).astype(f32),
+        "battery_x": (rs.randn(HIGHEST_SIZES["battery"], 10) * 1.3).astype(f32),
+        "battery_y": iid[rs.randint(0, len(iid), HIGHEST_SIZES["battery"])].astype(np.int32),
+        "swarm": (rs.randn(1, 1, 10) * 1.5
+                  + 0.05 * rs.randn(1, HIGHEST_SIZES["swarm"], 10)).astype(f32),
+        "codes": rs.randn(HIGHEST_SIZES["codes"], 100).astype(f32),
+        "queries": rs.randn(HIGHEST_SIZES["real"], 100).astype(f32),
+    }
+
+
+def highest_values(x: dict, device) -> dict:
+    """FID, the swarm's mean pairwise distance, the battery's posterior and
+    the VQ codes of highest_inputs() on `device`, under the caller's
+    precision."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.evaluation.classifiers import (
+        compute_posterior, train_classifier_battery)
+    from gan_discovery_pso_tpu_torch.evaluation.fid import fid_from_features
+    from gan_discovery_pso_tpu_torch.models.vqvae import vq_indices
+    from gan_discovery_pso_tpu_torch.pso.swarm import mean_pairwise_distance
+
+    t = {k: torch.as_tensor(v, device=device) for k, v in x.items()}
+    battery = train_classifier_battery(x["battery_x"], x["battery_y"], device=device)
+    return {"fid": float(fid_from_features(t["real"], t["synthetic"])),
+            "mean_pairwise_distance": float(mean_pairwise_distance(t["swarm"])[0]),
+            "posterior": compute_posterior(battery, t["synthetic"]).cpu(),
+            "codes": vq_indices(t["queries"], t["codes"]).cpu()}
+
+
+def highest_phase(device, card: str) -> dict:
+    """The four computations the JAX package pins at HIGHEST (the FID's
+    covariance and square root, the KNN battery's distances, the swarm's
+    mean pairwise distance, the VQ codebook's distances) on
+    highest_inputs(), inside `tf32_math()` as `--fast-math` runs dcgan and
+    pso-inverter: each held to the CPU's fp32 (the FID within
+    FID_TRACE_RTOL of its traces, the distance within DISTANCE_RTOL, the
+    posteriors and the codes equal but for near-ties) and printed beside the
+    JAX package's value (JAX_HIGHEST). No port kernel is on this path."""
+    import torch
+
+    from gan_discovery_pso_tpu_torch.ops import tf32_math
+
+    x = highest_inputs()
+    t0 = time.perf_counter()
+    with tf32_math():
+        on_card = highest_values(x, device)
+    on_cpu = highest_values(x, "cpu")
+    seconds = time.perf_counter() - t0
+    traces = float(np.var(x["real"], 0, ddof=1).sum() + np.var(x["synthetic"], 0, ddof=1).sum())
+    fid_err = abs(on_card["fid"] - on_cpu["fid"])
+    if fid_err > FID_TRACE_RTOL * traces:
+        raise AssertionError(f"--fast-math FID: card {on_card['fid']} vs CPU {on_cpu['fid']} "
+                             f"({fid_err} > {FID_TRACE_RTOL} x {traces})")
+    d_card, d_cpu = on_card["mean_pairwise_distance"], on_cpu["mean_pairwise_distance"]
+    if abs(d_card - d_cpu) > DISTANCE_RTOL * abs(d_cpu):
+        raise AssertionError(f"--fast-math mean pairwise distance: card {d_card} vs CPU {d_cpu}")
+    from gan_discovery_pso_tpu_torch.evaluation.classifiers import train_classifier_battery
+
+    cpu = torch.device("cpu")
+    battery = train_classifier_battery(x["battery_x"], x["battery_y"], device=cpu)
+    ties = near_tie_rows(torch.as_tensor(x["synthetic"]), battery.train_x, battery.k)
+    posterior = posteriors_agree(on_card["posterior"], on_cpu["posterior"], ties,
+                                 "--fast-math KNN posterior")
+    code_ties = near_tie_rows(torch.as_tensor(x["queries"], device=cpu),
+                              torch.as_tensor(x["codes"], device=cpu), 1)
+    code_diff = on_card["codes"] != on_cpu["codes"]
+    if bool((code_diff & ~code_ties).any()):
+        raise AssertionError(f"--fast-math VQ codes: {int((code_diff & ~code_ties).sum())} "
+                             "rows that are no near-tie differ between the card and the CPU")
+    report = {
+        "fid": {"card": on_card["fid"], "cpu": on_cpu["fid"], "jax": JAX_HIGHEST["fid"],
+                "traces": traces},
+        "mean_pairwise_distance": {"card": d_card, "cpu": d_cpu,
+                                   "jax": JAX_HIGHEST["mean_pairwise_distance"]},
+        "posterior": posterior,
+        "codes": {"rows": int(code_diff.numel()), "rows_differing": int(code_diff.sum()),
+                  "near_tie_rows": int(code_ties.sum())},
+        "seconds": seconds}
+    log(f"HIGHEST products under --fast-math, card vs CPU vs JAX ({card}): "
+        + json.dumps(report))
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -3708,6 +3846,7 @@ def main() -> int:
         f"max |g32 - g16| = {gates['bf16']:.3e}, both <= {GATE}")
     log(f"evals/s warm: fp32 {evals / s32:.0f}, tf32 {evals / stf:.0f}, bf16 {evals / s16:.0f} "
         f"({card})")
+    highest_phase(device, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pso_") as keep:
         pso_interim, upstream = Path(keep) / "batched", Path(keep) / "assessor"
         dim2_interim, ood_interim = Path(keep) / "dim2", Path(keep) / "ood"

@@ -1,13 +1,14 @@
 """The Fréchet distance on CAE embeddings, on the device (counterpart of
 `gan_discovery_pso_tpu/evaluation/fid.py`; reference
-src/evaluation/util_gan_evaluation.py:16-52). Products in fp32 parity; the
-matrix square root is `ops/sqrtm.py`'s."""
+src/evaluation/util_gan_evaluation.py:16-52). Products in full fp32, under
+`--fast-math` too (`highest_precision`, the JAX package's explicit HIGHEST);
+the matrix square root is `ops/sqrtm.py`'s."""
 
 from __future__ import annotations
 
 import torch
 
-from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
+from gan_discovery_pso_tpu_torch.ops.precision import highest_precision
 from gan_discovery_pso_tpu_torch.ops.sqrtm import trace_sqrt_product
 
 
@@ -16,7 +17,7 @@ def mean_and_cov(features: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (np.cov with rowvar=False)."""
     mu = torch.mean(features, dim=0)
     centered = features - mu[None, :]
-    with fp32_parity():
+    with highest_precision():
         cov = torch.matmul(centered.T, centered) / (features.shape[0] - 1)
     return mu, cov
 

@@ -9,8 +9,9 @@ Reference src/inverter/utils_vq_vae/util_model.py:125-322 and the custom
 autograd pair of src/hands_on/vq_vae/utils/util_function.py:4-66:
 
 - the nearest code is the argmin of the expanded-form distance
-  ‖z‖² − 2·z·cᵀ + ‖c‖² (one matmul, in fp32 parity), the first index on
-  exact ties (`torch.argmin`);
+  ‖z‖² − 2·z·cᵀ + ‖c‖² (one matmul, in full fp32 under `--fast-math` too,
+  as the JAX package pins it at HIGHEST), the first index on exact ties
+  (`torch.argmin`);
 - the straight-through estimator is z_e + (z_q − z_e).detach();
 - the codebook's gradient is the segment sum over the selected rows, the
   backward of `F.embedding` (the reference's `index_add_`); on the card that
@@ -52,7 +53,7 @@ from gan_discovery_pso_tpu_torch.ops import (
     conv2d,
     conv_transpose2d,
 )
-from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
+from gan_discovery_pso_tpu_torch.ops.precision import highest_precision
 
 _CONVS = (nn.Conv2d, nn.ConvTranspose2d)
 
@@ -63,7 +64,7 @@ _CONVS = (nn.Conv2d, nn.ConvTranspose2d)
 def vq_indices(z_e_nhwc: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """z_e [..., D], codebook [K, D] → the nearest code's index [...]."""
     flat = z_e_nhwc.reshape(-1, codebook.shape[1])
-    with fp32_parity():
+    with highest_precision():
         d = (torch.sum(flat * flat, dim=1, keepdim=True) - 2.0 * (flat @ codebook.T)
              + torch.sum(codebook * codebook, dim=1)[None, :])
     return torch.argmin(d, dim=1).reshape(z_e_nhwc.shape[:-1])

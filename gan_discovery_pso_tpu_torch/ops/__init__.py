@@ -9,6 +9,7 @@ from gan_discovery_pso_tpu_torch.ops.pool import adaptive_max_pool2d, max_pool2d
 from gan_discovery_pso_tpu_torch.ops.precision import (
     cast_model,
     fp32_parity,
+    highest_precision,
     tf32_enabled,
     tf32_math,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "conv2d",
     "conv_transpose2d",
     "fp32_parity",
+    "highest_precision",
     "knn_battery_posterior",
     "knn_predict_proba",
     "max_pool2d",

@@ -13,8 +13,9 @@ Which neighbours are chosen:
 - ties in distance go to the lower training index, as the JAX package's
   `lax.top_k` and sklearn's sorted search give them: the k nearest come
   from a stable sort of each row (`torch.topk` documents no tie order);
-- the distance product runs in fp32 parity (no TF32), which would move
-  neighbours;
+- the distance product runs in full fp32 (`highest_precision`, no TF32
+  under `--fast-math` either, as the JAX package pins it at HIGHEST), since
+  TF32 would move neighbours;
 - the expanded form q² + p² − 2q·p still rounds differently in each BLAS,
   so a near-tie (k-th and (k+1)-th distances within rounding) may pick
   another neighbour on the card than on the CPU or in the JAX package.
@@ -24,15 +25,15 @@ from __future__ import annotations
 
 import torch
 
-from gan_discovery_pso_tpu_torch.ops.precision import fp32_parity
+from gan_discovery_pso_tpu_torch.ops.precision import highest_precision
 
 
 def pairwise_sq_dists(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Squared Euclidean distances [Nq, Np] by the expanded form, its
-    product in fp32 parity."""
+    product in full fp32."""
     q2 = torch.sum(queries * queries, dim=1, keepdim=True)
     p2 = torch.sum(points * points, dim=1)[None, :]
-    with fp32_parity():
+    with highest_precision():
         cross = torch.matmul(queries, points.T)
     return q2 + p2 - 2.0 * cross
 

@@ -77,6 +77,16 @@ def fp32_parity():
 
 
 @contextlib.contextmanager
+def highest_precision():
+    """Full-fp32 matmuls and convs whatever the context, `tf32_math()`
+    included: the JAX package's explicit `precision=Precision.HIGHEST`,
+    which its `fast_math()` leaves as it is. cuDNN's determinism setting
+    stays the context's. The previous settings come back on exit."""
+    with _backend_flags(tf32=False, deterministic=torch.backends.cudnn.deterministic):
+        yield
+
+
+@contextlib.contextmanager
 def tf32_math():
     """TF32 convs and matmuls, cuDNN free to pick nondeterministic
     algorithms (the bf16 swarm mode's settings), for everything inside,

@@ -40,6 +40,7 @@ import torch
 
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig
 from gan_discovery_pso_tpu_torch.ops.kernels import swarm_update
+from gan_discovery_pso_tpu_torch.ops.precision import highest_precision
 
 
 class SwarmState(NamedTuple):
@@ -123,11 +124,15 @@ def draw_uniforms(rng: torch.Generator, n_iterations: int, n_swarms: int,
 def mean_pairwise_distance(positions: torch.Tensor) -> torch.Tensor:
     """[B, N, d] → [B]: mean Euclidean distance over unordered particle
     pairs, the reference's O(N²) 'mse' diagnostic (util_pso.py:76-86), by
-    the same ‖a‖² + ‖b‖² − 2a·b formula as the JAX package."""
+    the same ‖a‖² + ‖b‖² − 2a·b formula as the JAX package, its product in
+    full fp32 under `--fast-math` too, as the JAX package's HIGHEST: with
+    TF32 the product's rounding, ~1e-3 of ‖a‖², would swamp the distance of
+    two nearby particles."""
     n = positions.shape[1]
     sq = (positions * positions).sum(dim=2)
-    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(
-        positions, positions.transpose(1, 2))
+    with highest_precision():
+        cross = torch.bmm(positions, positions.transpose(1, 2))
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * cross
     d2 = torch.clamp(d2, min=0.0)
     mask = 1.0 - torch.eye(n, dtype=positions.dtype, device=positions.device)
     return (torch.sqrt(d2) * mask).sum(dim=(1, 2)) / (n * (n - 1))

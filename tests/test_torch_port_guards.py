@@ -57,7 +57,8 @@ def test_port_imports_on_a_host_without_pandas_matplotlib_or_pil():
     assert int(n) >= 44 and has == ["True", "False", "False"]
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_sweep.py", "profiler_check.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_sweep.py", "profiler_check.py",
+                                    "experiments_torch/chain_probe.py"])
 def test_card_scripts_import_no_jax(script):
     """Every import statement of the scripts that run on the card, those
     inside functions too, names neither JAX, flax, msgpack nor the JAX
