@@ -1,21 +1,144 @@
-"""Profiling: device traces and timed sections (counterpart of
-`gan_discovery_pso_tpu/core/profiling.py`).
+"""Profiling: spans at the program's layer boundaries and device traces
+(counterpart of `gan_discovery_pso_tpu/core/profiling.py`).
 
-- `trace(...)`: a `torch.profiler` session over the enclosed section, CPU
-  and CUDA activities (CUDA where the host has it), written as a
-  Chrome/TensorBoard trace (`*.pt.trace.json`) into `log_dir`;
-- `timed(...)`: wall-clock sections with the card synchronised before and
-  after, accumulated into a dict as `RunDir.write_timing` takes it;
-- `throughput(...)`: the evals/s record.
+- `span(name, device_time=False)`: a context manager around one layer of
+  the hot path (`pso/runner.py`, `pso/swarm.py optimize`,
+  `pso/fitness.py`). It records only while a `torch.profiler` session
+  records in this process, and never while `torch.compile` or
+  `torch.export` traces; otherwise it returns one shared no-op context,
+  and costs the read of the profiler's Python flag. A recorded span keeps
+  its name, its id, its parent's id, the id of its root (the runner call
+  it belongs to), and its host start and end on the profiler's clock
+  (`time.time_ns()`: an event's µs in `prof.events()` plus
+  `prof.profiler.kineto_results.trace_start_ns()`). With `device_time`,
+  where the process has initialised CUDA, it also records a pair of
+  timing events on the current stream (no kernel launch). It opens a
+  fast `RecordFunction` range, which only a session with CPU activity
+  records, so a CPU+CUDA session's timeline shows the layers over the
+  kernels. The last `SPAN_BUFFER` spans are kept.
+- `spans()`: the kept spans as dicts; `clear_spans()` empties the buffer.
+- `trace(log_dir)`: a `torch.profiler` session over the enclosed section,
+  CPU and CUDA activities (CUDA where the host has it), written as a
+  Chrome/TensorBoard trace (`*.pt.trace.json`) into `log_dir`.
+
+Spans nest on one stack: open them on the thread that runs the call.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import time
 from pathlib import Path
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_BUFFER = 200_000
+
+_OFF = contextlib.nullcontext()
+_open: list = []  # the spans open now, innermost last
+_kept: collections.deque = collections.deque()
+_free_events: list = []  # timing events whose readings were taken
+_ids = itertools.count(1)
+_streams: dict = {}  # the CUDA streams met, by (id, device index, device type)
+
+
+def span(name: str, device_time: bool = False):
+    """`with span("pso.update", device_time=True): ...` — a recorded span
+    while a profiler session records, else the shared no-op context (see
+    the module)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return _OFF
+    return _Span(name, device_time)
+
+
+def _event_pair() -> tuple:
+    if len(_free_events) < 2:
+        return (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    return _free_events.pop(), _free_events.pop()
+
+
+def _current_stream() -> torch.cuda.Stream:
+    """`torch.cuda.current_stream()` without building a new `Stream` each
+    call (about 7 µs of a shared H100 host's time, twice a span)."""
+    key = torch._C._cuda_getCurrentStream(torch._C._cuda_getDevice())
+    stream = _streams.get(key)
+    if stream is None:
+        stream = _streams[key] = torch.cuda.Stream(
+            stream_id=key[0], device_index=key[1], device_type=key[2])
+    return stream
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "call", "start_ns", "end_ns", "events", "device_us",
+                 "_range")
+
+    def __init__(self, name: str, device_time: bool):
+        self.name = name
+        self.events = () if device_time and torch.cuda.is_initialized() else None
+        self.device_us = None
+
+    def __enter__(self):
+        self.id = next(_ids)
+        if _open:
+            self.parent, self.call = _open[-1].id, _open[-1].call
+        else:
+            self.parent, self.call = None, self.id
+        _open.append(self)
+        self._range = torch._C._profiler._RecordFunctionFast(self.name)
+        self._range.__enter__()
+        self.start_ns = time.time_ns()
+        if self.events is not None:
+            self.events = _event_pair()
+            self.events[0].record(_current_stream())
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record(_current_stream())
+        self.end_ns = time.time_ns()
+        self._range.__exit__(*exc)
+        self._range = None
+        _open.pop()
+        if len(_kept) >= SPAN_BUFFER:
+            _release(_kept.popleft())
+        _kept.append(self)
+        return False
+
+
+def _release(s: _Span) -> None:
+    if s.events:
+        _free_events.extend(s.events)
+    s.events = None
+
+
+def spans() -> list:
+    """The kept spans in the order they opened, each a dict: name, id,
+    parent (None for a root), call (the root's id), start_ns and end_ns
+    (the profiler's clock), host_ns, device_us (None without
+    `device_time` or off the card). Waits for the card to reach each
+    timed span's end first."""
+    kept = sorted(_kept, key=lambda s: s.id)
+    for s in kept:
+        if s.events:
+            start, end = s.events
+            end.synchronize()
+            s.device_us = 1e3 * start.elapsed_time(end)
+            _release(s)
+    return [{"name": s.name, "id": s.id, "parent": s.parent, "call": s.call,
+             "start_ns": s.start_ns, "end_ns": s.end_ns, "host_ns": s.end_ns - s.start_ns,
+             "device_us": s.device_us} for s in kept]
+
+
+def clear_spans() -> None:
+    """Empty the buffer (its timing events go back to the pool)."""
+    for s in _kept:
+        _release(s)
+    _kept.clear()
 
 
 @contextlib.contextmanager
@@ -35,42 +158,3 @@ def trace(log_dir: str | Path, enabled: bool = True):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
         yield prof
-
-
-def _sync(sync) -> None:
-    """Wait for the card: the device (or tensor's device) `sync` names, or
-    the current one where CUDA is initialised; nothing for the CPU."""
-    if isinstance(sync, torch.Tensor):
-        sync = sync.device
-    if sync is None:
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        return
-    device = torch.device(sync)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-class timed:
-    """with timed(timings, "training_time"): ... — the card synchronised
-    before and after, so the span holds the device's work. `sync` is a
-    device or a tensor on one (default: the current CUDA device, if any)."""
-
-    def __init__(self, sink: dict, name: str, sync: object | None = None):
-        self.sink = sink
-        self.name = name
-        self.sync = sync
-
-    def __enter__(self):
-        _sync(self.sync)
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        _sync(self.sync)
-        self.sink[self.name] = self.sink.get(self.name, 0.0) + time.perf_counter() - self.t0
-        return False
-
-
-def throughput(n_evals: int, seconds: float) -> dict:
-    return {"evals": n_evals, "seconds": seconds, "evals_per_sec": n_evals / seconds}

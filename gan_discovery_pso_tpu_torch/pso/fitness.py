@@ -24,6 +24,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from gan_discovery_pso_tpu_torch.core.profiling import span
 from gan_discovery_pso_tpu_torch.ops.kernels import rescale01_per_sample
 from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
 
@@ -71,15 +72,20 @@ def apply_discovery_fitness(
     (the JAX package casts there). `return_images` gives
     (fitness, (rescaled images, generator images)), each [M, C, H, W].
     `rescale` is B2's wrapper; an exported program passes the registered
-    operator (`ops.kernels.rescale01_per_sample_op`)."""
-    z = positions.reshape(positions.shape[0], positions.shape[1], 1, 1)
-    if dtype is not None:
-        z = z.to(dtype)
-    img = gen_model(z)
-    img01 = rescale(img.float(), out_dtype=dtype or img.dtype)
-    logits = assessor(img01)
-    vals = fitness_from_posterior(assessor_posterior(logits, class_idx),
-                                  control, threshold, eps)
+    operator (`ops.kernels.rescale01_per_sample_op`). Spans: fitness.generator,
+    fitness.rescale, fitness.assessor, fitness.objective."""
+    with span("fitness.generator"):
+        z = positions.reshape(positions.shape[0], positions.shape[1], 1, 1)
+        if dtype is not None:
+            z = z.to(dtype)
+        img = gen_model(z)
+    with span("fitness.rescale"):
+        img01 = rescale(img.float(), out_dtype=dtype or img.dtype)
+    with span("fitness.assessor", device_time=True):
+        logits = assessor(img01)
+    with span("fitness.objective"):
+        vals = fitness_from_posterior(assessor_posterior(logits, class_idx),
+                                      control, threshold, eps)
     if return_images:
         return vals, (img01, img)
     return vals
@@ -125,14 +131,16 @@ def inverter_fitness(
     dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """positions [M, d] → hybrid fitness [M]; particle i owns source image
-    i of source_images [M, C, H, W] in [−1, 1] (the encoder-seeded init)."""
+    i of source_images [M, C, H, W] in [−1, 1] (the encoder-seeded init).
+    Span: fitness.reconstruction, the pixel term and the sum."""
     vals, (_img01, img) = apply_discovery_fitness(
         positions, gen_model, assessor, class_idx, control=control, threshold=threshold,
         eps=eps, dtype=dtype, return_images=True)
-    # against the raw G output, not the rescaled image (util_discovery.py:96-98)
-    f_rec = w_rec * torch.mean((source_images.float() - img.float()) ** 2, dim=(1, 2, 3))
-    # the reference adds eps a second time on the combined value (:101)
-    return w_ass * vals + f_rec + eps
+    with span("fitness.reconstruction"):
+        # against the raw G output, not the rescaled image (util_discovery.py:96-98)
+        f_rec = w_rec * torch.mean((source_images.float() - img.float()) ** 2, dim=(1, 2, 3))
+        # the reference adds eps a second time on the combined value (:101)
+        return w_ass * vals + f_rec + eps
 
 
 def make_inverter_fitness(

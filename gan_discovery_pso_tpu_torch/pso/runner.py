@@ -12,6 +12,9 @@ Models are arguments of `run`, so one runner serves every set of weights.
 `dtype=torch.bfloat16` runs the forwards on bf16 copies of the models (the
 swarm math stays fp32); the default runs them in fp32 under
 `ops.precision.fp32_parity`, the JAX package's `Precision.HIGHEST`.
+Under a profiler session each call is a `runner.call` span, the root of
+the swarm loop's and the fitness's (`core/profiling.py`), with the inputs,
+draws and model casts in `runner.inputs`.
 
 `resolve_fitness_chunk` keeps the JAX package's rule for the
 `trainer_pso.fitness_chunk` key, 'auto' included. The rule was measured on
@@ -34,6 +37,7 @@ from torch import nn
 
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig
 from gan_discovery_pso_tpu_torch.core.device import resolve_device
+from gan_discovery_pso_tpu_torch.core.profiling import span
 from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
 from gan_discovery_pso_tpu_torch.pso.fitness import (
     OPTIMIZE_IN,
@@ -120,14 +124,17 @@ def make_batched_discovery_runner(
     def run(gen_model: nn.Module, assessor: nn.Module, class_idxs, *,
             rng: torch.Generator | None = None, init_state: SwarmState | None = None,
             r1: torch.Tensor | None = None, r2: torch.Tensor | None = None):
-        classes, init_state, r1, r2 = discovery_inputs(
-            hp, device, gen_model, assessor, class_idxs, stack, rng, init_state, r1, r2)
-        fitness = discovery_fitness(cast_model(gen_model, dtype), cast_model(assessor, dtype),
-                                    classes, hp.n_particles, control, threshold, eps, dtype,
-                                    chunk)
-        precision = fp32_parity() if dtype is None else contextlib.nullcontext()
-        with precision, torch.inference_mode():
-            return optimize(fitness, hp, init_state, r1, r2)
+        with span("runner.call"):
+            with span("runner.inputs"):
+                classes, init_state, r1, r2 = discovery_inputs(
+                    hp, device, gen_model, assessor, class_idxs, stack, rng, init_state, r1,
+                    r2)
+                gen, cnn = cast_model(gen_model, dtype), cast_model(assessor, dtype)
+            fitness = discovery_fitness(gen, cnn, classes, hp.n_particles, control, threshold,
+                                        eps, dtype, chunk)
+            precision = fp32_parity() if dtype is None else contextlib.nullcontext()
+            with precision, torch.inference_mode():
+                return optimize(fitness, hp, init_state, r1, r2)
 
     return run
 
@@ -224,29 +231,32 @@ def make_inverter_runner(
             init_positions, *, rng: torch.Generator | None = None,
             init_state: SwarmState | None = None, r1: torch.Tensor | None = None,
             r2: torch.Tensor | None = None):
-        _on_device(gen_model, device, "gen_model")
-        _on_device(assessor, device, "assessor")
-        if (init_state is None or r1 is None or r2 is None) and rng is None:
-            raise ValueError("pass rng, or init_state, r1 and r2")
-        src = torch.as_tensor(source_images, dtype=torch.float32, device=device)
-        if init_state is None:
-            pos = torch.as_tensor(init_positions, dtype=torch.float32, device=device)
-            init_state = swarm_init_from_positions(rng, pos[None], hp.w_inertia)
-        n = init_state.positions.shape[1]
-        if src.shape[0] != n:
-            raise ValueError(f"{src.shape[0]} source images for {n} particles")
-        if r1 is None or r2 is None:
-            r1, r2 = draw_uniforms(rng, hp.n_iterations, 1, n, device)
-        gen = cast_model(gen_model, dtype)
-        cnn = cast_model(assessor, dtype)
+        with span("runner.call"):
+            with span("runner.inputs"):
+                _on_device(gen_model, device, "gen_model")
+                _on_device(assessor, device, "assessor")
+                if (init_state is None or r1 is None or r2 is None) and rng is None:
+                    raise ValueError("pass rng, or init_state, r1 and r2")
+                src = torch.as_tensor(source_images, dtype=torch.float32, device=device)
+                if init_state is None:
+                    pos = torch.as_tensor(init_positions, dtype=torch.float32, device=device)
+                    init_state = swarm_init_from_positions(rng, pos[None], hp.w_inertia)
+                n = init_state.positions.shape[1]
+                if src.shape[0] != n:
+                    raise ValueError(f"{src.shape[0]} source images for {n} particles")
+                if r1 is None or r2 is None:
+                    r1, r2 = draw_uniforms(rng, hp.n_iterations, 1, n, device)
+                r1, r2 = r1.to(device), r2.to(device)
+                gen = cast_model(gen_model, dtype)
+                cnn = cast_model(assessor, dtype)
 
-        def fitness(positions):  # [1, N, d] → [1, N]
-            return inverter_fitness(positions[0], gen, cnn, src, class_idx, control=control,
-                                    threshold=threshold, eps=eps, w_ass=w_ass, w_rec=w_rec,
-                                    dtype=dtype)[None]
+            def fitness(positions):  # [1, N, d] → [1, N]
+                return inverter_fitness(positions[0], gen, cnn, src, class_idx,
+                                        control=control, threshold=threshold, eps=eps,
+                                        w_ass=w_ass, w_rec=w_rec, dtype=dtype)[None]
 
-        precision = fp32_parity() if dtype is None else contextlib.nullcontext()
-        with precision, torch.inference_mode():
-            return optimize(fitness, hp, init_state, r1.to(device), r2.to(device))
+            precision = fp32_parity() if dtype is None else contextlib.nullcontext()
+            with precision, torch.inference_mode():
+                return optimize(fitness, hp, init_state, r1, r2)
 
     return run

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig
+from gan_discovery_pso_tpu_torch.core.profiling import span
 from gan_discovery_pso_tpu_torch.ops.kernels import swarm_update
 from gan_discovery_pso_tpu_torch.ops.precision import highest_precision
 
@@ -195,24 +196,30 @@ def optimize(
     """Run B swarms for n_iterations (default hp.n_iterations).
 
     fitness_fn: positions [B, N, d] → values [B, N]. r1, r2: [iters, B, N].
-    Returns (final_state, history, init_state)."""
+    Returns (final_state, history, init_state). Spans: pso.iteration, and
+    in it pso.fitness, pso.update and pso.history; pso.stack after."""
     n_iters = hp.n_iterations if n_iterations is None else n_iterations
     state = init_state
     if n_iters == 0:
         return state, _empty_history(state), init_state
     records = []
     for it in range(n_iters):
-        fitness = fitness_fn(state.positions)
-        new = pso_iteration(state, fitness, r1[it], r2[it], hp)
-        dummy = torch.amin(new.p_best_val, dim=1)
-        mmse = mean_pairwise_distance(new.positions)
-        done = state.done
-        state = freeze(done, state, new)
-        records.append((
-            state.positions, state.velocities, fitness,
-            torch.where(done, torch.nan, mmse), state.g_best_val,
-            torch.where(done, torch.nan, dummy), ~done))
-    history = PsoHistory(*(torch.stack(field, dim=1) for field in zip(*records)))
+        with span("pso.iteration"):
+            with span("pso.fitness"):
+                fitness = fitness_fn(state.positions)
+            with span("pso.update", device_time=True):
+                new = pso_iteration(state, fitness, r1[it], r2[it], hp)
+            with span("pso.history", device_time=True):
+                dummy = torch.amin(new.p_best_val, dim=1)
+                mmse = mean_pairwise_distance(new.positions)
+                done = state.done
+                state = freeze(done, state, new)
+                records.append((
+                    state.positions, state.velocities, fitness,
+                    torch.where(done, torch.nan, mmse), state.g_best_val,
+                    torch.where(done, torch.nan, dummy), ~done))
+    with span("pso.stack"):
+        history = PsoHistory(*(torch.stack(field, dim=1) for field in zip(*records)))
     return state, history, init_state
 
 

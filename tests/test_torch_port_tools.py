@@ -5,7 +5,8 @@ paths of each, `export-model generator|fitness` (a `torch.export` artifact
 bit-equal to the port's own forward and within rtol 1e-5 of the JAX
 artifact on the same weights; the fitness graph holds B2's registered
 operator), the latent-dim and per-patient `sweep`, the GPU lock (the six
-cases of `tests/test_tpulock.py` and its re-entrancy), and profiling.
+cases of `tests/test_tpulock.py` and its re-entrancy), and profiling (spans
+and the Chrome trace).
 Tiny sizes: G and D with z 8 and f 8, batch 4; the ResNets at their fixed
 widths with one input channel."""
 
@@ -34,7 +35,7 @@ from gan_discovery_pso_tpu_torch.compat import generator_tree, resnet_tree
 from gan_discovery_pso_tpu_torch.compat.export import load_exported
 from gan_discovery_pso_tpu_torch.compat.torch_export import export_torch_checkpoint
 from gan_discovery_pso_tpu_torch.compat.torch_import import convert_torch_checkpoint
-from gan_discovery_pso_tpu_torch.core import gpulock, throughput, timed, trace
+from gan_discovery_pso_tpu_torch.core import gpulock, profiling, trace
 from gan_discovery_pso_tpu_torch.core.checkpoint import save_pytree
 from gan_discovery_pso_tpu_torch.models import (
     CAEDecoder,
@@ -474,18 +475,35 @@ def test_cli_stage_runs_under_the_lease(lockfile, monkeypatch, tmp_path):
 # -- profiling -------------------------------------------------------------------
 
 
-def test_timed_accumulates_and_throughput_matches_jax():
-    from gan_discovery_pso_tpu.core.profiling import throughput as jax_throughput
+def test_spans_sum_sections_by_name_only_under_a_profiler():
+    """Sections timed as spans: each name's host time sums over its
+    repeats, a child's lies inside its parent's, and outside a profiler
+    session the same code records nothing."""
+    from torch.profiler import ProfilerActivity, profile
 
-    sink = {}
-    for _ in range(2):
-        with timed(sink, "span", sync=torch.zeros(1)):
-            pass
-    with timed(sink, "other"):
-        pass
-    assert set(sink) == {"span", "other"} and sink["span"] >= 0.0
-    assert throughput(512, 2.0) == jax_throughput(512, 2.0) == {
-        "evals": 512, "seconds": 2.0, "evals_per_sec": 256.0}
+    def sections():
+        for _ in range(2):
+            with profiling.span("section"):
+                with profiling.span("part"):
+                    torch.relu(torch.randn(64, 64))
+
+    profiling.clear_spans()
+    sections()
+    assert profiling.spans() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        sections()
+    spans = profiling.spans()
+    assert [s["name"] for s in spans] == ["section", "part"] * 2
+    total = {}
+    for s in spans:
+        total[s["name"]] = total.get(s["name"], 0) + s["host_ns"]
+    assert 0 < total["part"] <= total["section"]
+    roots = [s for s in spans if s["name"] == "section"]
+    assert all(s["parent"] is None and s["call"] == s["id"] for s in roots)
+    for root, part in zip(roots, (s for s in spans if s["name"] == "part")):
+        assert part["parent"] == root["id"] and part["call"] == root["id"]
+        assert root["start_ns"] <= part["start_ns"] <= part["end_ns"] <= root["end_ns"]
+    profiling.clear_spans()
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
