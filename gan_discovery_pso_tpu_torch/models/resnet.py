@@ -14,9 +14,13 @@ Submodules carry the reference's state-dict names (`conv1`, `bn1`,
 reference checkpoint and `compat/weights.py` output load with `strict=True`.
 The forward follows the module's mode: in eval mode BN normalises with the
 running statistics, in train mode with the batch's and updates the running
-ones (`ops.batch_norm_train`, torch's semantics). `change_classifier_head`
-re-heads a trained assessor for transfer (the pso-inverter's binary
-fine-tune).
+ones (`ops.batch_norm_train`, torch's semantics). Inside
+`folded_batch_norm(model)`, each eval BN of an fp32 ResNet is folded into
+the conv before it (`ops.fold_batch_norm`): the forward runs the conv with
+the folded weight and bias and no BN pass. A BN in train mode, bf16
+weights and every forward outside the context run the BN as above.
+`change_classifier_head` re-heads a trained assessor for transfer (the
+pso-inverter's binary fine-tune).
 
 AlexNet (reference util_cnn.py:193-249): 4 x (conv k, stride 1, pad p, with
 bias → activation → max_pool2d(2)), then fc1 → act → fc2 → act → fc3, the
@@ -34,6 +38,8 @@ With the shipped `padding: valid` and kernel 3, a 28x28 input shrinks to
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 from typing import NamedTuple
 
@@ -41,12 +47,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gan_discovery_pso_tpu_torch.core.profiling import span
 from gan_discovery_pso_tpu_torch.models.layers import linear, torch_default_linear_
 from gan_discovery_pso_tpu_torch.ops import (
     adaptive_max_pool2d,
     batch_norm_eval,
     batch_norm_train,
     conv2d,
+    fold_batch_norm,
     max_pool2d,
 )
 
@@ -69,7 +77,14 @@ class ResNetDef(NamedTuple):
         return {c: i for i, c in enumerate(sorted(self.iid_classes))}
 
 
+# conv -> (weight, bias) of its folded BN, inside `folded_batch_norm`
+_FOLDED = contextvars.ContextVar("folded_batch_norm", default={})
+
+
 def _conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    folded = _FOLDED.get().get(conv)
+    if folded is not None and not bn.training:
+        return conv2d(x, folded[0], folded[1], conv.stride, conv.padding)
     h = conv2d(x, conv.weight, None, conv.stride, conv.padding)
     norm = batch_norm_train if bn.training else batch_norm_eval
     return norm(h, bn.weight, bn.bias, bn.running_mean, bn.running_var, eps=bn.eps)
@@ -129,6 +144,47 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, C, H, W] → logits [N, n_class]."""
         return linear(self.features(x), self.fc.weight, self.fc.bias)
+
+
+def _conv_bn_pairs(model: ResNet) -> list:
+    """Every (conv, BN) pair of a ResNet's forward."""
+    pairs = [(model.conv1, model.bn1)]
+    for block in model.modules():
+        if isinstance(block, Bottleneck):
+            pairs += [(block.conv1, block.bn1), (block.conv2, block.bn2),
+                      (block.conv3, block.bn3)]
+            if block.identity_downsample is not None:
+                pairs.append(tuple(block.identity_downsample))
+    return pairs
+
+
+@contextlib.contextmanager
+def folded_batch_norm(model: nn.Module):
+    """Inside, `model`'s forwards run each eval BN folded into the conv
+    before it, for every pair of a `ResNet` whose BN is in eval mode and
+    whose conv weight is float32: the module itself, not a copy, so hooks
+    on it fire. The folds are computed once, on entry, from the weights
+    and statistics as they are then (a `models.fold` span where any pair
+    folds); they are kept beside the module, never in its parameters,
+    buffers or `state_dict`, and dropped on exit. Any other model, a BN in
+    train mode and bf16 weights run as outside. Entries nest: an inner
+    exit leaves an outer fold in place."""
+    pairs = [(conv, bn) for conv, bn in _conv_bn_pairs(model)
+             if not bn.training and conv.weight.dtype == torch.float32
+             ] if isinstance(model, ResNet) else []
+    if not pairs:
+        yield
+        return
+    convs, bns = zip(*pairs)
+    with span("models.fold"):
+        folded = fold_batch_norm(
+            [c.weight for c in convs], [b.weight for b in bns], [b.bias for b in bns],
+            [b.running_mean for b in bns], [b.running_var for b in bns], [b.eps for b in bns])
+    token = _FOLDED.set({**_FOLDED.get(), **dict(zip(convs, folded))})
+    try:
+        yield
+    finally:
+        _FOLDED.reset(token)
 
 
 def change_classifier_head(model: ResNet, n_class: int, generator: torch.Generator) -> ResNet:

@@ -4,7 +4,11 @@ from gan_discovery_pso_tpu_torch.ops.knn import (
     knn_predict_proba,
     pairwise_sq_dists,
 )
-from gan_discovery_pso_tpu_torch.ops.norm import batch_norm_eval, batch_norm_train
+from gan_discovery_pso_tpu_torch.ops.norm import (
+    batch_norm_eval,
+    batch_norm_train,
+    fold_batch_norm,
+)
 from gan_discovery_pso_tpu_torch.ops.pool import adaptive_max_pool2d, max_pool2d
 from gan_discovery_pso_tpu_torch.ops.precision import (
     cast_model,
@@ -28,6 +32,7 @@ __all__ = [
     "cast_model",
     "conv2d",
     "conv_transpose2d",
+    "fold_batch_norm",
     "fp32_parity",
     "highest_precision",
     "knn_battery_posterior",

@@ -4,7 +4,10 @@
 - eval: normalise with the running statistics only, eps 1e-5;
 - train: normalise with the batch's *biased* variance, and update the
   running statistics with the *unbiased* one, momentum 0.1 weighting the new
-  batch (`running ← 0.9·running + 0.1·batch`), as `nn.BatchNorm2d` does.
+  batch (`running ← 0.9·running + 0.1·batch`), as `nn.BatchNorm2d` does;
+- fold: an eval BN as the weight and bias of the bias-free conv before it
+  (`fold_batch_norm`), which `models/resnet.py folded_batch_norm` applies
+  for the length of a runner call.
 
 Parameters and statistics are used in x's dtype, which the convs keep at
 fp32 (`ops/conv.py`), as JAX's type promotion does for bf16 parameters.
@@ -38,6 +41,38 @@ def batch_norm_eval(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     t = x.dtype
     return F.batch_norm(x, running_mean.to(t), running_var.to(t), scale.to(t),
                         bias.to(t), training=False, eps=eps)
+
+
+def fold_batch_norm(weights: list, scales: list, biases: list, running_means: list,
+                    running_vars: list, eps: list) -> list:
+    """Eval BatchNorms folded into the bias-free convs before them: for each
+    conv weight w [O, I, kH, kW] and its BN (scale γ, bias β, running mean
+    μ and variance σ², eps), the pair (w·s, β − μ·s) with s = γ·rsqrt(σ² +
+    eps) broadcast over O, so that `conv2d(x, w·s, β − μ·s)` is
+    `batch_norm_eval(conv2d(x, w), γ, β, μ, σ², eps)` but for rounding.
+
+    Computed in float64 on the weights' device and rounded once to the
+    weights' dtype (they share one). Batched: the statistics in one pass,
+    the weights in one product per distinct I·kH·kW, so a ResNet-50's 53
+    pairs take about 65 launches."""
+    with torch.no_grad():
+        dtype, out_ch = weights[0].dtype, [w.shape[0] for w in weights]
+        stats = torch.stack([torch.cat(list(t)) for t in (scales, biases, running_means,
+                                                          running_vars)]).double()
+        torch._foreach_add_(stats[3].split(out_ch), eps)  # σ² + eps, each BN's own eps
+        s = stats[0] * torch.rsqrt(stats[3])
+        folded_b = (stats[1] - stats[2] * s).to(dtype).split(out_ch)
+        s = s.split(out_ch)
+        groups: dict = {}
+        for i, w in enumerate(weights):
+            groups.setdefault(w.numel() // out_ch[i], []).append(i)
+        folded_w = [None] * len(weights)
+        for idx in groups.values():
+            w = torch.cat([weights[i].reshape(out_ch[i], -1) for i in idx]).double()
+            w.mul_(torch.cat([s[i] for i in idx])[:, None])
+            for i, part in zip(idx, w.to(dtype).split([out_ch[i] for i in idx])):
+                folded_w[i] = part.view(weights[i].shape)
+        return list(zip(folded_w, folded_b))
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

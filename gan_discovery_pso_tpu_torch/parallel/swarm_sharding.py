@@ -43,17 +43,20 @@ the class's swarm group.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, NamedTuple
 
 import torch
 
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig
 from gan_discovery_pso_tpu_torch.ops.kernels import swarm_move, swarm_pbest_local
-from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
+from gan_discovery_pso_tpu_torch.ops.precision import cast_model
 from gan_discovery_pso_tpu_torch.parallel.mesh import Mesh, gather_blocks
 from gan_discovery_pso_tpu_torch.pso.fitness import OPTIMIZE_OUT
-from gan_discovery_pso_tpu_torch.pso.runner import discovery_fitness, discovery_inputs
+from gan_discovery_pso_tpu_torch.pso.runner import (
+    discovery_fitness,
+    discovery_inputs,
+    forward_scope,
+)
 from gan_discovery_pso_tpu_torch.pso.swarm import (
     PsoHistory,
     SwarmState,
@@ -254,7 +257,9 @@ def make_batched_sharded_discovery_runner(
             init_state=None, r1=None, r2=None) → (final, history, init)
 
     with the whole [C, ...] arrays on every rank. dtype=torch.bfloat16 runs
-    the forwards on bf16 copies of the models, the default fp32 parity."""
+    the forwards on bf16 copies of the models, the default fp32 parity; the
+    assessor's eval BatchNorms are folded for a call, as the one-rank
+    runner folds them (`pso.runner.forward_scope`)."""
     n_loc = _part(hp.n_particles, mesh.size(swarm_axis), 0, "n_particles").stop
     device = mesh.device
 
@@ -264,11 +269,10 @@ def make_batched_sharded_discovery_runner(
         classes, init_state, r1, r2 = discovery_inputs(
             hp, device, gen_model, assessor, class_idxs, None, rng, init_state, r1, r2)
         lay = layout(mesh, classes.numel(), hp.n_particles, swarm_axis, class_axis)
-        fitness = discovery_fitness(cast_model(gen_model, dtype), cast_model(assessor, dtype),
-                                    classes[lay.classes], n_loc, control, threshold, eps,
-                                    dtype)
-        precision = fp32_parity() if dtype is None else contextlib.nullcontext()
-        with precision, torch.inference_mode():
+        cnn = cast_model(assessor, dtype)
+        fitness = discovery_fitness(cast_model(gen_model, dtype), cnn, classes[lay.classes],
+                                    n_loc, control, threshold, eps, dtype)
+        with forward_scope(cnn, dtype):
             return _run_sharded(fitness, hp, _on(init_state, device), r1, r2, mesh,
                                 swarm_axis, class_axis)
 

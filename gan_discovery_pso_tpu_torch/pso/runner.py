@@ -12,6 +12,10 @@ Models are arguments of `run`, so one runner serves every set of weights.
 `dtype=torch.bfloat16` runs the forwards on bf16 copies of the models (the
 swarm math stays fp32); the default runs them in fp32 under
 `ops.precision.fp32_parity`, the JAX package's `Precision.HIGHEST`.
+Every runner's forwards run in `forward_scope`, which also folds the
+assessor's eval BatchNorms into its convs for the length of a call
+(`models.folded_batch_norm`, on the assessor itself, so hooks on it fire;
+fp32 ResNets only, so the bf16 copies run their BNs).
 Under a profiler session each call is a `runner.call` span, the root of
 the swarm loop's and the fitness's (`core/profiling.py`), with the inputs,
 draws and model casts in `runner.inputs`.
@@ -38,6 +42,7 @@ from torch import nn
 from gan_discovery_pso_tpu_torch.core.config import PsoConfig
 from gan_discovery_pso_tpu_torch.core.device import resolve_device
 from gan_discovery_pso_tpu_torch.core.profiling import span
+from gan_discovery_pso_tpu_torch.models.resnet import folded_batch_norm
 from gan_discovery_pso_tpu_torch.ops.precision import cast_model, fp32_parity
 from gan_discovery_pso_tpu_torch.pso.fitness import (
     OPTIMIZE_IN,
@@ -91,6 +96,16 @@ def _on_device(model: nn.Module, device: torch.device, name: str):
             raise ValueError(f"{name} lives on {p.device}, the runner on {device}")
 
 
+@contextlib.contextmanager
+def forward_scope(assessor: nn.Module, dtype: torch.dtype | None):
+    """What a runner's forwards run in: fp32 parity (none for `dtype`'s
+    copies), inference mode, and `assessor`'s eval BatchNorms folded into
+    its convs (`models.folded_batch_norm`)."""
+    precision = fp32_parity() if dtype is None else contextlib.nullcontext()
+    with precision, torch.inference_mode(), folded_batch_norm(assessor):
+        yield
+
+
 def make_batched_discovery_runner(
     hp: PsoConfig,
     control: str = OPTIMIZE_OUT,
@@ -132,8 +147,7 @@ def make_batched_discovery_runner(
                 gen, cnn = cast_model(gen_model, dtype), cast_model(assessor, dtype)
             fitness = discovery_fitness(gen, cnn, classes, hp.n_particles, control, threshold,
                                         eps, dtype, chunk)
-            precision = fp32_parity() if dtype is None else contextlib.nullcontext()
-            with precision, torch.inference_mode():
+            with forward_scope(cnn, dtype):
                 return optimize(fitness, hp, init_state, r1, r2)
 
     return run
@@ -255,8 +269,7 @@ def make_inverter_runner(
                                         control=control, threshold=threshold, eps=eps,
                                         w_ass=w_ass, w_rec=w_rec, dtype=dtype)[None]
 
-            precision = fp32_parity() if dtype is None else contextlib.nullcontext()
-            with precision, torch.inference_mode():
+            with forward_scope(cnn, dtype):
                 return optimize(fitness, hp, init_state, r1, r2)
 
     return run
