@@ -44,9 +44,9 @@ evaluation stages through their CLI (the assessor and evaluation phase:
 `cae` at latent 10 and batch 128 for 1 epoch, `classifiers` on it with the
 test split's KNN posterior on the card against the CPU, equal but for
 near-ties; `cnn-multipatient` with ResNet-50 and `pso-discovery
---batch-classes` on the model.msgpack it wrote, 50 launches each; `cnn`, 8
-ResNet-50s on 2048 images; an AlexNet cnn-multipatient under the batched
-runner, 50 launches each; every checkpoint read back bit-equal; then
+--batch-classes` on the model.msgpack it wrote, B1 and B2 called in its
+capture; `cnn`, 8 ResNet-50s on 2048 images; an AlexNet cnn-multipatient
+under the batched runner, B1 and B2 called in its capture; every checkpoint read back bit-equal; then
 `evaluate_gan_epoch` over 12,800 samples of G(64), B2 10 launches at
 [1280, 784], FID, IS, rec and one evaluation profiled; 1280 samples on the
 card against the CPU), runs the DCGAN and the VQ-VAE stages through their
@@ -180,6 +180,14 @@ KERNEL_NAMES = {"swarm_update": ("swarm_update_kernel",),
                 "rescale01_rows": ("rescale_short_kernel", "rescale_long_kernel"),
                 "swarm_pbest_local": ("swarm_pbest_local_kernel",),
                 "swarm_move": ("swarm_move_kernel",)}
+# a runner call that replays CUDA graphs (pso/graphs.py: the batched,
+# sequential and inverter runners on the card with fp32 models, TF32
+# included) calls each kernel's wrapper once in its eager first iteration
+# and once in the capture, and in no replay; the wrappers count those calls
+# (`.launches`): CAPTURE_CALLS of each for a call that captures, none for a
+# later call of the same runner. How often the kernels ran on the card is
+# counted from the profiler's kernel events (profile_main_path).
+CAPTURE_CALLS = 2
 # the parallel phase: B1's split halves at the main path's swarm halved,
 # stacked, half of B1's large shape, odd rows and d, d past float4, and the
 # shipped dimension 2, each cut into SHARDS shards
@@ -575,20 +583,29 @@ def drive_main_path(models, device, dtype, kernels, hp=None, classes=None, **dra
 def profile_main_path(models, device, kernels, dtype=None) -> dict:
     """One main-path run (fp32, or `dtype`) under torch.profiler: wall time,
     device busy time (the sum of the device intervals of kernels, copies and
-    sets on the one stream), the idle share, device µs per launch of each
-    port kernel, and the kernels taking most device time."""
+    sets on the one stream), the idle share, the runs and device µs per run
+    of each port kernel, and the kernels taking most device time. Each of
+    B1 and B2 must have run once an iteration by the profiler's kernel
+    events: from the graphs in fp32, launched one by one for `dtype`'s
+    copies."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, seconds, _ = drive_main_path(models, device, dtype, kernels)
-    return device_summary(prof, seconds)
+    summary = device_summary(prof, seconds)
+    runs = {k.__name__: summary.get("port_kernel_runs", {}).get(k.__name__)
+            for k in kernels}
+    if runs != dict.fromkeys(runs, N_ITERATIONS):
+        raise AssertionError(f"main path ({dtype or 'fp32'}): kernel events {runs}, "
+                             f"not {N_ITERATIONS} each")
+    return summary
 
 
 def device_summary(prof, seconds: float) -> dict:
     """A profiled run's wall time, device busy time (the sum of the device
     intervals of kernels, copies and sets on the one stream), idle share,
-    device µs per launch of each port kernel, and the kernels taking most
-    device time."""
+    the runs (kernel events) and device µs per run of each port kernel, and
+    the kernels taking most device time."""
     from torch.autograd import DeviceType
 
     per_name: dict = {}
@@ -610,6 +627,7 @@ def device_summary(prof, seconds: float) -> dict:
         "wall_ms": seconds * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / (seconds * 1e6),
         "port_kernels_us_per_launch": {k: t / c for k, (t, c) in ours.items() if c},
+        "port_kernel_runs": {k: c for k, (_, c) in ours.items()},
         "top_device_kernels": [{"name": k[:90], "ms": t / 1e3, "count": c}
                                for k, (t, c) in top],
     }
@@ -677,7 +695,7 @@ def check_against_cpu(models, device, kernels) -> float:
     r1, r2 = draw_uniforms(rng, 3, 2, 4, device)
     _, on_card, _, launches = drive_main_path(models, device, None, kernels, hp, [1, 6],
                                               init_state=init, r1=r1, r2=r2)
-    if set(launches.values()) != {3}:
+    if set(launches.values()) != {CAPTURE_CALLS}:
         raise AssertionError(f"small run launches {launches}")
     cpu_models = tuple(copy.deepcopy(m).cpu() for m in models)
     _, on_cpu, _ = make_batched_discovery_runner(hp, eps=EPS, device="cpu")(
@@ -884,7 +902,7 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
         # 2. batched fp32 through the CLI, against the runner called directly
         batched = run_cli(tmp, "batched", dirs, device, kernels, "--batch-classes", sets=sets100)
         step("batched CLI run")
-        expect_launches(batched, dict.fromkeys(names, hp_iters))
+        expect_launches(batched, dict.fromkeys(names, CAPTURE_CALLS))
         g32 = check_g_best(batched, len(classes))
         direct, runner_s = direct_runner(models, device, sets100)
         step("direct runner call")
@@ -901,7 +919,7 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
         # 3. sequential, one B = 1 runner per class
         seq = run_cli(tmp, "sequential", dirs, device, kernels, sets=sets100)
         step("sequential CLI run")
-        expect_launches(seq, dict.fromkeys(names, len(classes) * hp_iters))
+        expect_launches(seq, dict.fromkeys(names, CAPTURE_CALLS))  # one runner, every class
         seq_diff = float(np.abs(check_g_best(seq, len(classes)) - g32).max())
         if seq_diff > SEQ_TOL:
             raise AssertionError(f"pipeline sequential: |g_best - batched| {seq_diff} > {SEQ_TOL}")
@@ -913,8 +931,8 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
         dim2 = run_cli(tmp, "dim2", dirs2, device, kernels, "--batch-classes",
                        sets={"trainer_gan.z_dim": 2, "trainer_pso.dim_space": 2})
         step("dim 2 CLI run")
-        expect_launches(dim2, {"swarm_update": hp_iters,
-                               "rescale01_rows": hp_iters + len(classes)})
+        expect_launches(dim2, {"swarm_update": CAPTURE_CALLS,
+                               "rescale01_rows": CAPTURE_CALLS + len(classes)})
         check_g_best(dim2, len(classes))
         check_artifacts(dim2, classes, 2, hp_iters)
         if keep_dim2 is not None:
@@ -934,7 +952,7 @@ def pipeline_phase(models, device, kernels, card: str, after_step=None,
         tf32 = run_cli(tmp, "fast_math_tf32", dirs, device, kernels, "--batch-classes",
                        "--fast-math", sets=sets100)
         step("--fast-math CLI run")
-        expect_launches(tf32, dict.fromkeys(names, hp_iters))
+        expect_launches(tf32, dict.fromkeys(names, CAPTURE_CALLS))
         gate = float(np.abs(check_g_best(tf32, len(classes)) - g32).max())
         if gate > GATE:
             raise AssertionError(f"pipeline --fast-math (TF32) gate: max |g32 - g_tf32| = "
@@ -1064,8 +1082,9 @@ def inverter_phase(models, device, kernels, card: str, sets=(),
         out["inverter_cli"], wall = cli["launches"], cli["wall"]
         res, fine = cli["value"]
         n_iters, n = res.hp.n_iterations, res.hp.n_particles
-        if out["inverter_cli"] != dict.fromkeys(names, n_iters):
-            raise AssertionError(f"inverter CLI launches {out['inverter_cli']}, not {n_iters} each")
+        if out["inverter_cli"] != dict.fromkeys(names, CAPTURE_CALLS):
+            raise AssertionError(f"inverter CLI launches {out['inverter_cli']}, "
+                                 f"not {CAPTURE_CALLS} each")
         reports, models_dir = cli["reports"], cli["model"]
         if keep_interim is not None:
             shutil.copytree(cli["interim"], keep_interim)
@@ -1161,8 +1180,10 @@ def inverter_phase(models, device, kernels, card: str, sets=(),
                                                    drange=(0, 1)),
                                  AdamConfig.from_config(cfg.trainer_pso_inverter.optimizer))
     for label, launches in out.items():
-        if launches != dict.fromkeys(names, n_iters):
-            raise AssertionError(f"{label}: launches {launches}, not {n_iters} each")
+        # the bf16 copies run eagerly
+        want = n_iters if label == "inverter_bf16" else CAPTURE_CALLS
+        if launches != dict.fromkeys(names, want):
+            raise AssertionError(f"{label}: launches {launches}, not {want} each")
 
     evals = n * n_iters
     log(f"inverter: try-load rerun and runner alone bit-equal to the CLI run "
@@ -1529,10 +1550,11 @@ def assessor_eval_phase(models, device, kernels, card: str, sets=(),
     against the CPU path, equal but for near-ties), `cnn-multipatient`
     (ResNet-50, 8 classes, 1 epoch; `model.msgpack` read back bit-equal)
     and `pso-discovery --batch-classes` on that models dir with G(64),
-    z = 100, 8 x 32 x 50 (50 launches of each kernel), `cnn` (8 ResNet-50s,
+    z = 100, 8 x 32 x 50 (each kernel called CAPTURE_CALLS times, in the
+    runner's capture), `cnn` (8 ResNet-50s,
     1 epoch, --limit 2048; each `model_{label}.msgpack` read back), an
     AlexNet `cnn-multipatient` (padding same, 1 epoch) under the batched
-    runner (50 launches each), then `evaluate_gan_epoch` with G(64), the
+    runner (CAPTURE_CALLS calls each), then `evaluate_gan_epoch` with G(64), the
     phase's CAE and battery over N_SYNTHETIC images (B2 10 launches at
     [1280, 784]; FID, IS, rec, wall time, one evaluation profiled) and 1280
     images on the card against the CPU. The stages themselves launch no
@@ -1613,7 +1635,7 @@ def assessor_eval_phase(models, device, kernels, card: str, sets=(),
                             **dict(sets)})
         out["pso_on_port_assessor"] = pso["launches"]
         iters = int(cfg.trainer_pso.n_iterations)
-        expect_launches(pso, dict.fromkeys(names, iters))
+        expect_launches(pso, dict.fromkeys(names, CAPTURE_CALLS))
         report["pso_on_port_assessor"] = {"stage_s": pso["wall"],
                                           "g_best": check_g_best(pso, len(mdef.iid_classes))
                                           .tolist()}
@@ -1639,8 +1661,9 @@ def assessor_eval_phase(models, device, kernels, card: str, sets=(),
         final, _, seconds, launches = drive_main_path((models[0], alexnet), device, None,
                                                       kernels, hp=hp)
         out["alexnet_runner"] = launches
-        if launches != dict.fromkeys(names, iters):
-            raise AssertionError(f"AlexNet runner launches {launches}, not {iters} each")
+        if launches != dict.fromkeys(names, CAPTURE_CALLS):
+            raise AssertionError(f"AlexNet runner launches {launches}, "
+                                 f"not {CAPTURE_CALLS} each")
         g = final.g_best_val
         if not (bool(torch.isfinite(g).all()) and bool((g >= EPS).all())
                 and bool((g <= 1 + EPS).all())):
@@ -3481,10 +3504,11 @@ def remainder_phase(models, device, kernels, card: str, upstream: Path,
     2. `sweep --latent-dims 10 --stages dcgan pso-discovery` (1 dcgan epoch
        on the assessor phase's CAE and battery; pso-discovery sequential,
        8 classes x 32 x 50, on the z-10 G the dcgan leg writes and the
-       seeded ResNet-50): B2 10 launches in the dcgan leg, B1 and B2 400
-       each in the pso-discovery leg; then the per-patient sweep of patient
-       1 x both controls (pso-inverter, 1 fine-tune epoch at --limit
-       REDUCED_LIMIT, 256 x 50): B1 and B2 50 each a leg; every leg under
+       seeded ResNet-50): B2 10 launches in the dcgan leg, B1 and B2
+       CAPTURE_CALLS each in the pso-discovery leg (one runner, one
+       capture); then the per-patient sweep of patient 1 x both controls
+       (pso-inverter, 1 fine-tune epoch at --limit REDUCED_LIMIT, 256 x
+       50): B1 and B2 CAPTURE_CALLS each a leg; every leg under
        this process's GPU lease (`run_sweep`);
     3. `export-torch` then `convert-torch` of the dcgan leg's card-trained G
        (`round_trip_torch`);
@@ -3497,7 +3521,6 @@ def remainder_phase(models, device, kernels, card: str, upstream: Path,
     import tempfile
 
     from gan_discovery_pso_tpu_torch.core import load_config
-    from gan_discovery_pso_tpu_torch.core.config import DataConfig
 
     t_phase = time.perf_counter()
     out, report = {}, {}
@@ -3508,9 +3531,6 @@ def remainder_phase(models, device, kernels, card: str, upstream: Path,
         _enc, dirs["inv"] = write_encoder(tmp / "upstream", 1, device)
         data = {"data.data_dir": str(tmp / "no_mnist"), **dict(sets)}
         cfg = load_config(CFG, overrides=data)
-        classes = DataConfig.from_config(cfg.data).iid_classes
-        iters = int(cfg.trainer_pso.n_iterations)
-        inv_iters = int(cfg.trainer_pso_inverter.n_iterations)
         extra = [f"{k}={v}" for k, v in data.items()]
 
         # 1. export-model
@@ -3536,8 +3556,8 @@ def remainder_phase(models, device, kernels, card: str, upstream: Path,
         latent_s = time.perf_counter() - t0
         n_eval = -(-int(cfg.trainer_gan.batch_size) * 100 // 1280)  # the sampler's chunks
         want = {"dcgan": expected(rescale01_rows=n_eval),
-                "pso-discovery": expected(swarm_update=len(classes) * iters,
-                                          rescale01_rows=len(classes) * iters)}
+                "pso-discovery": expected(swarm_update=CAPTURE_CALLS,
+                                          rescale01_rows=CAPTURE_CALLS)}
         if [leg["stage"] for leg in legs] != ["dcgan", "pso-discovery"]:
             raise AssertionError(f"latent sweep legs {legs}")
         for leg in legs:
@@ -3556,7 +3576,7 @@ def remainder_phase(models, device, kernels, card: str, upstream: Path,
         if controls != ["optimize_in_training", "optimize_out_training"]:
             raise AssertionError(f"per-patient sweep legs {patient_legs}")
         for leg, control in zip(patient_legs, controls):
-            want_inv = expected(swarm_update=inv_iters, rescale01_rows=inv_iters)
+            want_inv = expected(swarm_update=CAPTURE_CALLS, rescale01_rows=CAPTURE_CALLS)
             if leg["stage"] != "pso-inverter" or leg["launches"] != want_inv:
                 raise AssertionError(f"per-patient leg {leg}: not pso-inverter with {want_inv}")
             out[f"sweep pso-inverter patient {PATIENT} {control}"] = leg["launches"]
@@ -3595,17 +3615,16 @@ def driver_phase(kernels, card: str, leg_args: dict = DRIVER_ARGS) -> dict:
     (`leg_args`), with `--fast-math` where the driver passes it: each leg a
     subprocess of the port's CLI, rc 0, its wall printed; each leg's launches
     of the port kernels read from the line the CLI writes into the leg's log
-    (`leg_launches`): B1 and B2 50 each in pso_z10 (8 classes x 32 x 50,
-    batched), B2 an evaluation's chunks in dcgan_z10, none elsewhere (the
+    (`leg_launches`): B1 and B2 CAPTURE_CALLS each in pso_z10 (8 classes x
+    32 x 50, batched), B2 an evaluation's chunks in dcgan_z10, none elsewhere (the
     names of `kernels` only; none where it is empty); a second invocation
     runs no leg and records nothing. Returns each leg's launches."""
     from gan_discovery_pso_tpu_torch.core import load_config
     from gan_discovery_pso_tpu_torch.tools import run_experiment as rex
 
     names = [k.__name__ for k in kernels]
-    iters = int(load_config(CFG).trainer_pso.n_iterations)
     n_eval = -(-int(load_config(CFG).trainer_gan.batch_size) * 100 // 1280)
-    want = {"pso_z10": {"swarm_update": iters, "rescale01_rows": iters},
+    want = {"pso_z10": {"swarm_update": CAPTURE_CALLS, "rescale01_rows": CAPTURE_CALLS},
             "dcgan_z10": {"rescale01_rows": n_eval}}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp_name:
@@ -3820,10 +3839,11 @@ def main() -> int:
         # TF32: the CLI's --fast-math, fp32 models inside tf32_math()
         with tf32_math() if label == "tf32" else contextlib.nullcontext():
             final, hist, seconds, launches = drive_main_path(models, device, dtype, KERNELS)
+        # the bf16 copies run eagerly
+        want = N_ITERATIONS if dtype is not None else CAPTURE_CALLS
         for name, count in launches.items():
-            if count != N_ITERATIONS:
-                raise AssertionError(f"{label}: {name} launched {count} times, "
-                                     f"not {N_ITERATIONS}")
+            if count != want:
+                raise AssertionError(f"{label}: {name} launched {count} times, not {want}")
         g = final.g_best_val
         if not (bool(torch.isfinite(g).all()) and bool((g >= EPS).all())
                 and bool((g <= 1 + EPS).all())):
@@ -3897,6 +3917,10 @@ def main() -> int:
                                     for run, counts in pipeline_launches.items()}
         rec["device_us_per_launch"] = prof.get("port_kernels_us_per_launch", {}).get(
             rec["name"], "not measured")
+        # the fp32 main path's runs by the profiler's kernel events (`launches`
+        # counts the wrapper's calls: the capture's and the first iteration's)
+        rec["kernel_runs"] = (prof.get("port_kernel_runs", {}).get(rec["name"], "not measured")
+                              if rec["name"] in launches32 else "not measured")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,9 @@
   records, so a CPU+CUDA session's timeline shows the layers over the
   kernels. The last `SPAN_BUFFER` spans are kept.
 - `spans()`: the kept spans as dicts; `clear_spans()` empties the buffer.
+- `cutting(cut)`: inside, every `span(name, device_time)` records nothing
+  and calls `cut(name, device_time)` at its entry instead. `pso/graphs.py`
+  cuts a captured PSO iteration there into one CUDA graph per layer.
 - `trace(log_dir)`: a `torch.profiler` session over the enclosed section,
   CPU and CUDA activities (CUDA where the host has it), written as a
   Chrome/TensorBoard trace (`*.pt.trace.json`) into `log_dir`.
@@ -43,17 +46,33 @@ _kept: collections.deque = collections.deque()
 _free_events: list = []  # timing events whose readings were taken
 _ids = itertools.count(1)
 _streams: dict = {}  # the CUDA streams met, by (id, device index, device type)
+_cut = None  # inside `cutting`: called at each span's entry in place of a record
 
 
 def span(name: str, device_time: bool = False):
     """`with span("pso.update", device_time=True): ...` — a recorded span
     while a profiler session records, else the shared no-op context (see
     the module)."""
+    if _cut is not None:
+        _cut(name, device_time)
+        return _OFF
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     if torch.compiler.is_compiling() or torch.compiler.is_exporting():
         return _OFF
     return _Span(name, device_time)
+
+
+@contextlib.contextmanager
+def cutting(cut):
+    """Inside, `span(name, device_time)` calls `cut(name, device_time)` at
+    its entry and records nothing."""
+    global _cut
+    saved, _cut = _cut, cut
+    try:
+        yield
+    finally:
+        _cut = saved
 
 
 def _event_pair() -> tuple:

@@ -187,6 +187,13 @@ def folded_batch_norm(model: nn.Module):
         _FOLDED.reset(token)
 
 
+def folds_in_force() -> dict:
+    """conv → (weight, bias) of each BN folded here: the tensors that the
+    `folded_batch_norm` entries around this point computed, which the
+    convs' forwards read."""
+    return _FOLDED.get()
+
+
 def change_classifier_head(model: ResNet, n_class: int, generator: torch.Generator) -> ResNet:
     """A copy of `model` with a new Linear(2048, n_class) head, initialised
     as torch does by default, drawn from `generator` (on the CPU, so the

@@ -20,6 +20,11 @@ Under a profiler session each call is a `runner.call` span, the root of
 the swarm loop's and the fitness's (`core/profiling.py`), with the inputs,
 draws and model casts in `runner.inputs`.
 
+On the card, with the models as they are (fp32 parity or TF32), both
+runners capture one iteration as CUDA graphs and replay them for every
+later iteration and call (`pso/graphs.py`); the bf16 copies, the CPU and
+every other loop run `optimize` eagerly.
+
 `resolve_fitness_chunk` keeps the JAX package's rule for the
 `trainer_pso.fitness_chunk` key, 'auto' included. The rule was measured on
 a TPU (HBM streaming); on the card it only sets how many particles one
@@ -50,10 +55,10 @@ from gan_discovery_pso_tpu_torch.pso.fitness import (
     apply_discovery_fitness,
     inverter_fitness,
 )
+from gan_discovery_pso_tpu_torch.pso.graphs import IterationGraphs
 from gan_discovery_pso_tpu_torch.pso.swarm import (
     SwarmState,
     draw_uniforms,
-    optimize,
     swarm_init,
     swarm_init_from_positions,
 )
@@ -135,6 +140,7 @@ def make_batched_discovery_runner(
         raise ValueError(
             f"fitness_chunk={fitness_chunk} must divide n_particles={hp.n_particles}")
     chunk = fitness_chunk if fitness_chunk and fitness_chunk < hp.n_particles else None
+    graphs = IterationGraphs(hp, device, dtype)
 
     def run(gen_model: nn.Module, assessor: nn.Module, class_idxs, *,
             rng: torch.Generator | None = None, init_state: SwarmState | None = None,
@@ -145,10 +151,14 @@ def make_batched_discovery_runner(
                     hp, device, gen_model, assessor, class_idxs, stack, rng, init_state, r1,
                     r2)
                 gen, cnn = cast_model(gen_model, dtype), cast_model(assessor, dtype)
-            fitness = discovery_fitness(gen, cnn, classes, hp.n_particles, control, threshold,
-                                        eps, dtype, chunk)
+
+            def make_fitness(closed):
+                return rows_fitness(gen, cnn, closed["row_classes"], hp.n_particles, control,
+                                    threshold, eps, dtype, chunk)
+
+            closed = {"row_classes": classes.repeat_interleave(chunk or hp.n_particles)}
             with forward_scope(cnn, dtype):
-                return optimize(fitness, hp, init_state, r1, r2)
+                return graphs.optimize(make_fitness, closed, init_state, r1, r2, (gen, cnn))
 
     return run
 
@@ -180,9 +190,17 @@ def discovery_fitness(gen: nn.Module, cnn: nn.Module, classes: torch.Tensor, n: 
     """fitness(positions [B, n, d]) → [B, n], swarm b scored for class
     classes[b]: one generator and one assessor forward over all B·n
     particles, or one per `chunk` particles of each swarm."""
-    b = classes.numel()
+    return rows_fitness(gen, cnn, classes.repeat_interleave(chunk or n), n, control,
+                        threshold, eps, dtype, chunk)
+
+
+def rows_fitness(gen: nn.Module, cnn: nn.Module, row_classes: torch.Tensor, n: int,
+                 control: str, threshold: float, eps: float,
+                 dtype: torch.dtype | None = None, chunk: int | None = None):
+    """`discovery_fitness` given the class of each row of a forward,
+    row_classes [B·k] (k = chunk or n, swarm-major)."""
     k = chunk or n
-    row_classes = classes.repeat_interleave(k)  # [B·k], swarm-major
+    b = row_classes.numel() // k
 
     def fitness_rows(positions):  # [B, k, d] → [B, k]
         vals = apply_discovery_fitness(
@@ -240,6 +258,7 @@ def make_inverter_runner(
     in fp32 parity. The models are arguments, so one runner serves every
     patient's fine-tuned assessor."""
     device = resolve_device(device)
+    graphs = IterationGraphs(hp, device, dtype)
 
     def run(gen_model: nn.Module, assessor: nn.Module, class_idx: int, source_images,
             init_positions, *, rng: torch.Generator | None = None,
@@ -264,12 +283,17 @@ def make_inverter_runner(
                 gen = cast_model(gen_model, dtype)
                 cnn = cast_model(assessor, dtype)
 
-            def fitness(positions):  # [1, N, d] → [1, N]
-                return inverter_fitness(positions[0], gen, cnn, src, class_idx,
-                                        control=control, threshold=threshold, eps=eps,
-                                        w_ass=w_ass, w_rec=w_rec, dtype=dtype)[None]
+            def make_fitness(closed):
+                def fitness(positions):  # [1, N, d] → [1, N]
+                    return inverter_fitness(positions[0], gen, cnn, closed["source"],
+                                            closed["class_idx"], control=control,
+                                            threshold=threshold, eps=eps, w_ass=w_ass,
+                                            w_rec=w_rec, dtype=dtype)[None]
 
+                return fitness
+
+            closed = {"source": src, "class_idx": class_idx}
             with forward_scope(cnn, dtype):
-                return optimize(fitness, hp, init_state, r1, r2)
+                return graphs.optimize(make_fitness, closed, init_state, r1, r2, (gen, cnn))
 
     return run

@@ -28,6 +28,8 @@ positions and velocities and each iteration's r1/r2 are inputs of
 state's own `iteration`, so a resumed run replays the single-shot one.
 
 The loop has no host synchronisation: early stop is a mask, not a break.
+So on the card the runners replay its iteration as CUDA graphs
+(`pso/graphs.py`), on the same `pso_iteration` and `history_row`.
 """
 
 from __future__ import annotations
@@ -185,6 +187,20 @@ def freeze(done: torch.Tensor, old: SwarmState, new: SwarmState) -> SwarmState:
     return SwarmState(*(_freeze(done, o, n) for o, n in zip(old, new)))
 
 
+def history_row(state: SwarmState, new: SwarmState, fitness: torch.Tensor) -> tuple:
+    """(the state after an iteration: `new`, or `state` for the swarms
+    already done; the iteration's `PsoHistory` fields, each without its T
+    axis), given the state before it, the update `new` and the fitness
+    [B, N] it scored."""
+    dummy = torch.amin(new.p_best_val, dim=1)
+    mmse = mean_pairwise_distance(new.positions)
+    done = state.done
+    state = freeze(done, state, new)
+    return state, (state.positions, state.velocities, fitness,
+                   torch.where(done, torch.nan, mmse), state.g_best_val,
+                   torch.where(done, torch.nan, dummy), ~done)
+
+
 def optimize(
     fitness_fn: Callable[[torch.Tensor], torch.Tensor],
     hp: PsoConfig,
@@ -210,14 +226,8 @@ def optimize(
             with span("pso.update", device_time=True):
                 new = pso_iteration(state, fitness, r1[it], r2[it], hp)
             with span("pso.history", device_time=True):
-                dummy = torch.amin(new.p_best_val, dim=1)
-                mmse = mean_pairwise_distance(new.positions)
-                done = state.done
-                state = freeze(done, state, new)
-                records.append((
-                    state.positions, state.velocities, fitness,
-                    torch.where(done, torch.nan, mmse), state.g_best_val,
-                    torch.where(done, torch.nan, dummy), ~done))
+                state, record = history_row(state, new, fitness)
+                records.append(record)
     with span("pso.stack"):
         history = PsoHistory(*(torch.stack(field, dim=1) for field in zip(*records)))
     return state, history, init_state
